@@ -1,0 +1,303 @@
+"""Packed low-bit serving of a dense llama model (the paper's deployment).
+
+Every linear of the trunk is a :class:`QTensor`.  At ``a_bits < 16`` each
+matmul goes through ``ops.quant_matmul`` (per-token dynamic activation
+codes, the ``w4a8_matmul`` kernel); at a16 through ``ops.dequant_matmul``.
+At ``kv_bits == 8`` K/V enter the cache as int8 codes with a float32 scale
+per (token, head), and attention reads the cache as stored through
+``ops.flash_prefill`` / ``ops.flash_decode``; at ``kv_bits >= 16`` the
+cache is float.  Full-matrix transform sites keep their activation factor
+(``attn_t`` / ``mlp_t`` = {"a_inv", optional "shift"}) and merged biases
+(``bq``/``bk``/``bv``, ``b_gate``/``b_up``) are honoured, as calibrated
+trees carry them.
+
+Cache capacity: a write past ``max_len`` is dropped (slot ``max_len - 1``
+keeps its token) and ``len`` saturates at ``max_len``.  Quantization
+conserves poison: a non-finite K/V row gives a NaN scale.
+
+The port updates the cache in place: ``prefill_chunk`` and ``decode_step``
+write into the cache they are given and return it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qtensor import QTensor
+from repro_torch.core.quantizer import QuantConfig, quantize_codes
+from repro_torch.kernels import ops
+from repro_torch.kernels.dequant_matmul import KERNEL_BITS
+from repro_torch.models import layers
+from repro_torch.serve.kv_cache import chunk_write_index
+
+PACKED_WEIGHTS = ("wq", "wk", "wv", "wo")
+PACKED_MLP = ("w_gate", "w_up", "w_down")
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device; CUDA that is absent raises (no quiet CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is "
+                           "available; pass device='cpu' to run the plain "
+                           "versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {dev}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def quantize_layers(lp: dict, qcfg: QuantConfig) -> dict:
+    """Packed form of a (stacked) layer tree: QTensor linears, norms,
+    transforms and biases kept."""
+    out = {k: lp[k] for k in ("ln_attn", "ln_mlp", "attn_t", "mlp_t",
+                              "bq", "bk", "bv") if k in lp}
+    for k in PACKED_WEIGHTS:
+        out[k] = quantize_codes(lp[k], qcfg)
+    mlp = lp["mlp"]
+    out["mlp"] = {k: quantize_codes(mlp[k], qcfg) for k in PACKED_MLP}
+    out["mlp"].update({k: mlp[k] for k in ("b_gate", "b_up") if k in mlp})
+    return out
+
+
+def quantize_lm_packed(params: dict, cfg: ModelConfig, qcfg: QuantConfig
+                       ) -> dict:
+    """Raw float tree -> packed serving tree on the RTN grid; a tree that
+    already holds QTensor linears passes through untouched."""
+    if isinstance(params["layers"]["wq"], QTensor):
+        return params
+    out = {k: params[k] for k in ("embed", "ln_f", "head") if k in params}
+    out["layers"] = quantize_layers(params["layers"], qcfg)
+    return out
+
+
+def _act_transform(t: Optional[dict], h: torch.Tensor) -> torch.Tensor:
+    """h_t = (h - shift) @ a_inv."""
+    if t is None:
+        return h
+    if "shift" in t:
+        h = h - t["shift"].to(h.dtype)
+    return h @ t["a_inv"].to(h.dtype)
+
+
+def _kv_quantize(x: torch.Tensor, kv_bits: int):
+    """Symmetric per-(token, head) codes: x (..., H, D) -> (int8 codes
+    (..., H, D), float32 scale (..., H)).  ``amax`` propagates NaN, so a
+    poisoned row keeps a NaN scale."""
+    if kv_bits != 8:
+        raise NotImplementedError(f"kv_bits={kv_bits}: the port has the kv8 "
+                                  f"cache only (kv4 is not ported yet)")
+    xf = x.to(torch.float32)
+    qmax = 2.0 ** (kv_bits - 1) - 1.0
+    bound = torch.clamp_min(torch.amax(xf.abs(), dim=-1), 1e-8)
+    scale = bound / torch.full_like(bound, qmax)     # IEEE quotient
+    q = torch.clamp(torch.round(xf / scale[..., None]), -qmax - 1.0, qmax)
+    return q.to(torch.int8), scale
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedModel:
+    """Serves a packed tree: ``init_cache`` / ``prefill`` / ``prefill_chunk``
+    / ``decode_step``.  ``mode="auto"`` runs the CUDA kernels on CUDA
+    tensors, ``"plain"`` the plain versions."""
+    cfg: ModelConfig
+    qcfg: QuantConfig
+    mode: str = "auto"
+    device: str = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+        cfg, qcfg = self.cfg, self.qcfg
+        if self.mode not in ops.MODES:
+            raise ValueError(f"mode={self.mode!r}: use one of {ops.MODES}")
+        missing = []
+        if cfg.act != "swiglu" or cfg.norm != "rmsnorm" or not cfg.rope_theta:
+            missing.append("OPT-style layers (relu, layernorm, sinusoidal "
+                           "positions)")
+        if qcfg.w_bits not in KERNEL_BITS:
+            missing.append(f"{qcfg.w_bits}-bit weights")
+        if qcfg.kv_bits < 16 and qcfg.kv_bits != 8:
+            missing.append(f"the kv{qcfg.kv_bits} cache")
+        if missing:
+            raise NotImplementedError("not ported yet: " + ", ".join(missing))
+        if qcfg.a_bits < 16 and not 2 <= qcfg.a_bits <= 8:
+            raise ValueError(f"a_bits={qcfg.a_bits}: use 2..8 or >= 16")
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.qcfg.kv_bits < 16
+
+    def _mm(self, x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+        return ops.quant_matmul(x, qt, a_bits=self.qcfg.a_bits,
+                                mode=self.mode)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        if not self.kv_quantized:
+            dt = getattr(torch, cfg.dtype)
+            cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+        else:
+            cache = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                     "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                     "k_scale": torch.zeros(shape[:-1], device=dev),
+                     "v_scale": torch.zeros(shape[:-1], device=dev)}
+        cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        return cache
+
+    def _kv_entries(self, cache: dict, i: int) -> tuple:
+        keys = ("k", "v", "k_scale", "v_scale") if self.kv_quantized \
+            else ("k", "v")
+        return tuple(cache[k][i] for k in keys)
+
+    def _kv_values(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
+        """What enters the cache, in ``_kv_entries`` order: codes and
+        scales (quantize-on-write) at kv8, the values at kv16."""
+        if not self.kv_quantized:
+            return k, v
+        (kq, k_s), (vq, v_s) = (_kv_quantize(t, self.qcfg.kv_bits)
+                                for t in (k, v))
+        return kq, vq, k_s, v_s
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = layers.apply_norm(params["ln_f"], x, self.cfg.norm)
+        head = params.get("head")
+        return x @ (head if head is not None else params["embed"].T)
+
+    def _ints(self, x, fill: int, n: int) -> torch.Tensor:
+        if x is None:
+            return torch.full((n,), fill, dtype=torch.int32,
+                              device=self.device)
+        return torch.as_tensor(x, dtype=torch.int32).to(self.device)
+
+    # ---- prefill -------------------------------------------------------
+    def prefill(self, params: dict, batch: dict, max_len: int):
+        """Whole-prompt prefill: one chunk at offset 0 into a fresh cache of
+        ``max(max_len, T)`` positions.  ``batch["lengths"]`` (B,) marks the
+        valid length of end-padded prompts.  Returns (logits (B, 1, vocab)
+        at each last valid token, cache)."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        bsz, t = tokens.shape
+        lengths = self._ints(batch.get("lengths"), t, bsz)
+        cache = self.init_cache(bsz, max(max_len, t))
+        x = self._forward_chunk(params, tokens, lengths, cache,
+                                torch.zeros_like(lengths))
+        x = x[torch.arange(bsz, device=self.device), lengths.long() - 1]
+        return self._head(params, x[:, None]), cache
+
+    def prefill_chunk(self, params: dict, batch: dict, cache: dict, offset,
+                      *, last_only: bool = False):
+        """One C-token chunk written into (and attending) ``cache`` at
+        ``offset`` (B,).  ``batch["chunk_len"]`` (B,) counts valid rows
+        (0 for idle rows).  Returns (logits (B, C, vocab) — or (B, 1, vocab)
+        at the last valid row when ``last_only`` — , cache) with ``len``
+        advanced to ``offset + chunk_len`` (saturating)."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        bsz, c = tokens.shape
+        chunk_len = self._ints(batch.get("chunk_len"), c, bsz)
+        offset = self._ints(offset, 0, bsz)
+        x = self._forward_chunk(params, tokens, chunk_len, cache, offset)
+        if last_only:
+            rows = torch.clamp_min(chunk_len.long() - 1, 0)
+            x = x[torch.arange(bsz, device=self.device), rows][:, None]
+        return self._head(params, x), cache
+
+    def _forward_chunk(self, params, tokens, chunk_len, cache, offset):
+        """Embed -> blocks (cache write + as-stored attention); returns the
+        pre-norm hidden states (B, C, d) and updates ``cache`` in place."""
+        bsz, c = tokens.shape
+        s = cache["k"].shape[2]
+        x = params["embed"][tokens.long()]
+        pos = offset[:, None] + torch.arange(c, device=self.device)[None, :]
+        write = chunk_write_index(offset, chunk_len, c, s)
+        for i in range(self.cfg.num_layers):
+            x = self._block_prefill_chunk(
+                _layer(params["layers"], i), x, self._kv_entries(cache, i),
+                pos, offset, chunk_len, write)
+        cache["len"] = torch.clamp_max(offset + chunk_len, s).to(torch.int32)
+        return x
+
+    def _qkv(self, p, x, pos):
+        """norm -> activation transform -> packed q/k/v -> RoPE."""
+        cfg = self.cfg
+        b, t = x.shape[0], x.shape[1]
+        h = layers.apply_norm(p["ln_attn"], x, cfg.norm)
+        h = _act_transform(p.get("attn_t"), h)
+        q, k, v = (self._mm(h, p[w]) for w in ("wq", "wk", "wv"))
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        hd = cfg.resolved_head_dim
+        q = layers.apply_rope(q.reshape(b, t, cfg.num_heads, hd), pos,
+                              cfg.rope_theta)
+        k = layers.apply_rope(k.reshape(b, t, cfg.num_kv_heads, hd), pos,
+                              cfg.rope_theta)
+        return q, k, v.reshape(b, t, cfg.num_kv_heads, hd)
+
+    def _block_prefill_chunk(self, p, x, kv, pos, offset, chunk_len, write):
+        b, c = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(p, x, pos)
+        b_idx, c_idx, dest = write
+        for ct, val in zip(kv, self._kv_values(k, v)):
+            ct[b_idx, dest] = val[b_idx, c_idx].to(ct.dtype)
+        out = ops.flash_prefill(q, kv, offset, chunk_len, mode=self.mode)
+        x = x + self._mm(out.reshape(b, c, -1), p["wo"])
+        return x + self._mlp(p, x)
+
+    # ---- decode --------------------------------------------------------
+    def decode_step(self, params: dict, token, cache: dict):
+        """token (B, 1) -> (logits (B, 1, vocab), cache), writing each
+        row's K/V at position ``len`` (dropped when the row is full) and
+        advancing ``len`` (saturating at capacity)."""
+        token = torch.as_tensor(token).to(self.device)
+        x = params["embed"][token.long()]
+        cur_len = cache["len"]
+        s = cache["k"].shape[2]
+        for i in range(self.cfg.num_layers):
+            x = self._block_decode(_layer(params["layers"], i), x,
+                                   self._kv_entries(cache, i), cur_len)
+        logits = self._head(params, x)
+        cache["len"] = torch.clamp_max(cur_len + 1, s).to(torch.int32)
+        return logits, cache
+
+    def _block_decode(self, p, x, kv, cur_len):
+        b = x.shape[0]
+        s = kv[0].shape[1]
+        q, k, v = self._qkv(p, x, cur_len[:, None])
+        # a full row's write is dropped: write the old value back at the
+        # clamped index (one index per row, so no duplicate scatter)
+        idx = torch.clamp_max(cur_len, s - 1).long()
+        rows = torch.arange(b, device=self.device)
+        keep = (cur_len >= s)
+        for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
+            old = ct[rows, idx]
+            mask = keep.reshape(-1, *([1] * (old.ndim - 1)))
+            ct[rows, idx] = torch.where(mask, old, val.to(ct.dtype))
+        out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, s),
+                               mode=self.mode)
+        x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
+        return x + self._mlp(p, x)
+
+    # ---- mlp -----------------------------------------------------------
+    def _mlp(self, p, x):
+        h = layers.apply_norm(p["ln_mlp"], x, self.cfg.norm)
+        h = _act_transform(p.get("mlp_t"), h)
+        mp = p["mlp"]
+
+        def lin(wn, bn):
+            y = self._mm(h, mp[wn])
+            return y + mp[bn] if bn in mp else y
+
+        inner = F.silu(lin("w_gate", "b_gate")) * lin("w_up", "b_up")
+        return self._mm(inner, mp["w_down"])

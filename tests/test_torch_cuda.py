@@ -1,0 +1,172 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  Shapes are
+small and ragged on purpose (M not a tile multiple, N not a multiple of
+64, K tails, G = 5 query heads per KV head, D = 32 and 128) — the
+full-width shapes run in ``chip_smoke.py``.
+
+Tolerances: w4a8_matmul has an exact integer dot and the plain version's
+float32 epilogue, so it must agree to 1e-6 of the output's magnitude
+(bit-equal in practice); dequant_matmul and the attention kernels sum in
+another order than the plain version: 1e-5 of the output's magnitude.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.packing import pack
+from repro_torch.kernels import ops
+from repro_torch.kernels.dequant_matmul import (dequant_matmul,
+                                                dequant_matmul_plain)
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_plain)
+from repro_torch.kernels.int8_matmul import quant_matmul_plain, w4a8_matmul
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _err(got, want):
+    torch.cuda.synchronize()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+
+
+def _weight(rng, k, n, bits, g, dev):
+    codes = torch.from_numpy(rng.integers(0, 2 ** bits, (k, n)).astype(np.uint8))
+    gs = g or k
+    scale = torch.from_numpy((rng.random((k // gs, n)) * 0.02 + 1e-3
+                              ).astype(np.float32))
+    zp = torch.from_numpy(rng.integers(0, 2 ** bits, (k // gs, n)
+                                       ).astype(np.float32))
+    return pack(codes, bits).to(dev), scale.to(dev), zp.to(dev)
+
+
+SHAPES = [(1, 128, 64, 4, 32), (37, 384, 200, 2, 64), (70, 1024, 130, 8, 0),
+          (4, 520, 96, 4, 8)]
+
+
+@pytest.mark.parametrize("m,k,n,bits,g", SHAPES)
+def test_dequant_matmul_kernel(dev, m, k, n, bits, g):
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    w = _weight(rng, k, n, bits, g, dev)
+    got = dequant_matmul(x, *w, bits=bits, group_size=g)
+    want = dequant_matmul_plain(x, *w, bits=bits, group_size=g)
+    assert _err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("a_bits", [4, 8])
+@pytest.mark.parametrize("m,k,n,bits,g", SHAPES)
+def test_w4a8_matmul_kernel(dev, m, k, n, bits, g, a_bits):
+    rng = np.random.default_rng(m + k + a_bits)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    w = _weight(rng, k, n, bits, g, dev)
+    got = w4a8_matmul(x, *w, bits=bits, group_size=g, a_bits=a_bits)
+    want = quant_matmul_plain(x, *w, bits=bits, group_size=g, a_bits=a_bits)
+    assert _err(got, want) < 1e-6
+
+
+def test_w4a8_matmul_nan_row_stays_in_its_row(dev):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((5, 256)).astype(np.float32)).to(dev)
+    x[2, 17] = float("nan")
+    w = _weight(rng, 256, 64, 4, 64, dev)
+    y = w4a8_matmul(x, *w, bits=4, group_size=64, a_bits=4)
+    assert torch.isnan(y[2]).all()
+    assert torch.isfinite(y[[0, 1, 3, 4]]).all()
+
+
+def _cache(rng, b, s, hkv, d, kv8, dev):
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+    if not kv8:
+        return tuple(t.to(dev) for t in (f(b, s, hkv, d), f(b, s, hkv, d)))
+    c = lambda: torch.from_numpy(rng.integers(-128, 128, (b, s, hkv, d)
+                                              ).astype(np.int8))
+    sc = lambda: torch.from_numpy((rng.random((b, s, hkv)) * 0.05 + 0.01
+                                   ).astype(np.float32))
+    return tuple(t.to(dev) for t in (c(), c(), sc(), sc()))
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("g,d", [(1, 128), (4, 32), (5, 64)])
+def test_flash_decode_kernel(dev, g, d, kv8):
+    rng = np.random.default_rng(g + d)
+    b, s, hkv = 3, 128, 2
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d)).astype(np.float32)).to(dev)
+    kv = _cache(rng, b, s, hkv, d, kv8, dev)
+    cur = torch.tensor([0, 1, 77], dtype=torch.int32, device=dev)
+    got = flash_decode(q, kv[0], kv[1], cur, *kv[2:])
+    want = flash_decode_plain(q, kv[0], kv[1], cur, *kv[2:], block_kv=32)
+    assert _err(got, want) < 1e-5
+    assert not got[0].any()
+
+
+def test_flash_decode_kernel_ignores_poisoned_stale_slot(dev):
+    """A NaN past cur_len never enters p @ v in the kernel."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 1, 64)).astype(np.float32)).to(dev)
+    kv = _cache(rng, 2, 64, 2, 64, True, dev)
+    kv[3][:, 40] = float("nan")
+    cur = torch.tensor([40, 12], dtype=torch.int32, device=dev)
+    assert torch.isfinite(flash_decode(q, kv[0], kv[1], cur, *kv[2:])).all()
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("offs,cls", [((0, 50), (20, 0)), ((3, 100), (13, 7))])
+def test_flash_prefill_kernel(dev, offs, cls, g, kv8):
+    rng = np.random.default_rng(sum(offs) + g)
+    b, s, hkv, c, d = 2, 128, 2, 20, 128
+    q = torch.from_numpy(rng.standard_normal((b, hkv, c, g, d)).astype(np.float32)).to(dev)
+    kv = _cache(rng, b, s, hkv, d, kv8, dev)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cls, dtype=torch.int32, device=dev)
+    got = flash_prefill(q, kv[0], kv[1], off, cl, *kv[2:])
+    want = flash_prefill_plain(q, kv[0], kv[1], off, cl, *kv[2:], block_kv=32)
+    assert _err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+def test_one_token_prefill_kernel_equals_decode_kernel(dev, kv8):
+    rng = np.random.default_rng(2)
+    b, s, hkv, g, d = 3, 128, 2, 4, 128
+    q = torch.from_numpy(rng.standard_normal((b, 1, hkv * g, d)).astype(np.float32)).to(dev)
+    kv = _cache(rng, b, s, hkv, d, kv8, dev)
+    cur = torch.tensor([1, 70, 128], dtype=torch.int32, device=dev)
+    dec = ops.flash_decode(q, kv, cur)
+    pre = ops.flash_prefill(q, kv, cur - 1, torch.ones_like(cur))
+    assert torch.equal(dec, pre)
+
+
+@pytest.mark.parametrize("abits,kvbits,tol", [(4, 8, 5e-3), (16, 16, 1e-4)])
+def test_quantized_model_kernels_match_plain(dev, abits, kvbits, tol):
+    """Teacher-forced prefill + 4 decode steps, kernels vs plain versions.
+    At a4 an ulp-level difference in an attention output can move one
+    activation code by one step, so the a4 tolerance is looser."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch.serve import random_packed_lm
+    from repro_torch.serve.quantized import QuantizedModel
+    cfg = get_config("llama-micro")
+    qcfg = QuantConfig(w_bits=4, a_bits=abits, group_size=32, kv_bits=kvbits)
+    params = random_packed_lm(cfg, qcfg, 0, dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 28)).astype(np.int32))
+    out = {}
+    for mode in ("auto", "plain"):
+        m = QuantizedModel(cfg, qcfg, mode=mode, device=dev)
+        lg, cache = m.prefill(params, {"tokens": toks[:, :24]}, max_len=64)
+        seq = [lg]
+        for i in range(24, 28):
+            lg, cache = m.decode_step(params, toks[:, i:i + 1], cache)
+            seq.append(lg)
+        out[mode] = torch.cat(seq, 1)
+    assert _err(out["auto"], out["plain"]) < tol
