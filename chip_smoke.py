@@ -8,13 +8,15 @@ failure raises (exit code != 0).
 1. build: the CUDA kernels of ``src/repro_torch/csrc`` are built from
    source (one nvcc per file, in parallel) and loaded.
 2. kernels: each kernel against its plain PyTorch version at the llama-7b
-   shapes the serving path gives it (plus GQA and ragged-length cases),
-   with the error beside its stated tolerance, the kernel's time, the plain
-   version's time, one PyTorch library call's time as a yardstick (the port
-   never calls it) and the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of their type).  Times are
-   CUDA-event medians with the 50 MB L2 flushed before every launch, since
-   the serving path finds each weight cold.
+   shapes the serving path gives it (plus kv16/kv8/kv4, GQA, ragged-length
+   and page-16 cases), with the error beside its stated tolerance, the
+   kernel's time, the plain version's time, one PyTorch library call's time
+   as a yardstick (the port never calls it) and the least time the card
+   could take (bytes over 3.35 TB/s or operations over the peak rate of
+   their type).  Times are CUDA-event medians with the 50 MB L2 flushed
+   before every launch, since the serving path finds each weight cold.
+   Each paged kernel must equal its linear kernel bit for bit on the same
+   contents, and a one-token chunk must equal decode, in every format.
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -22,7 +24,15 @@ failure raises (exit code != 0).
    tokens against the plain versions on the card.
 4. serve at a16: W4A16 g128 with the fp cache (depth cut), which runs
    dequant_matmul.
+5. serve phase 3's model and requests over page pools of 64: (a) with
+   whole-prompt admission into an automatic pool, whose streams must equal
+   phase 3's token for token; (b) with chunks of 64 into a 10-page pool
+   (the working set needs 12), which must preempt, complete every request
+   and pass the per-block teacher-forced check over pages.
+6. serve the same model at kv4 (4 requests x (128 + 8), paged, chunks of
+   64), gated by the same per-block check.
 
+Phases 3, 5 and 6 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -44,6 +54,11 @@ FP32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 
 LAYERS = 32                   # llama-7b depth; cut here only if time forces
 A16_LAYERS = 8
+KERNELS = {"w4a8_matmul": "w4a8_matmul.cu",        # name -> source file
+           "dequant_matmul": "dequant_matmul.cu",
+           "flash_decode": "flash_decode.cu", "flash_prefill": "flash_prefill.cu",
+           "flash_decode_paged": "flash_decode.cu",
+           "flash_prefill_paged": "flash_prefill.cu"}
 
 
 def log(msg: str) -> None:
@@ -113,21 +128,34 @@ def main() -> None:
 
     timer = Timer(torch)
     check_kernels(torch, timer, results)
-    counts = serve_w4a4(torch)
-    counts_a16 = serve_a16(torch)
+    check_paged_kernels(torch, timer, results)
+    del timer
+    torch.cuda.empty_cache()
 
-    # ---- 5. summary --------------------------------------------------------
-    for name, n in counts_a16.items():
-        counts[name] += n
+    # ---- 3-6. serving; one packed llama-7b tree shared by 3, 5 and 6 ------
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    params = serve.build_model(serve.build_parser().parse_args(
+        SERVE_ARGS + ["--layers", str(LAYERS)]))[2]
+    log(f"[serve] random init + RTN packing of the llama-7b tree "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts, streams = serve_w4a4(torch, params)
+    phases = [serve_a16(torch), serve_paged(torch, params, streams),
+              serve_kv4(torch, params)]
+    del params
+
+    # ---- 7. summary --------------------------------------------------------
+    for phase in phases:
+        for name, n in phase.items():
+            counts[name] += n
     kernels = []
-    for name in ("w4a8_matmul", "dequant_matmul", "flash_decode",
-                 "flash_prefill"):
+    for name in KERNELS:
         r = results[name]
         if counts[name] <= 0:
             raise RuntimeError(f"{name} was never launched on the serving "
                                f"path")
         kernels.append({"name": name, "route": "cuda",
-                         "source": f"src/repro_torch/csrc/{name}.cu",
+                         "source": f"src/repro_torch/csrc/{KERNELS[name]}",
                          "replaces": r["replaces"], "launches": counts[name],
                          "max_abs_err": r["max_abs_err"], "tol": r["tol"],
                          "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -163,6 +191,38 @@ def _record(results, name, case, err, tol, ms, plain_ms, lib_ms, bms, by,
         results[name] = {"replaces": replaces, "max_abs_err": err, "tol": tol,
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bms, "bound_by": by, "shape": case}
+
+
+def kv_cache_tensors(torch, gen, lead, hkv, d, kv_bits):
+    """(k, v, k_scale, v_scale) cache rows ``lead`` on the card in format
+    ``kv_bits``: float32; random int8 codes with float32 scales; or random
+    nibble bytes with bf16 scales."""
+    dev = "cuda"
+    if kv_bits == 16:
+        return tuple(torch.randn(lead + (hkv, d), generator=gen, device=dev)
+                     for _ in range(2)) + (None, None)
+    dk = d // 2 if kv_bits == 4 else d
+    codes = lambda: torch.randint(-128, 128, lead + (hkv, dk), generator=gen,
+                                  device=dev, dtype=torch.int8)
+    if kv_bits == 8:
+        sc = lambda: torch.rand(lead + (hkv,), generator=gen, device=dev) * 0.05 + 0.01
+    else:
+        sc = lambda: (torch.rand(lead + (hkv, d // 32), generator=gen, device=dev)
+                      * 0.05 + 0.01).to(torch.bfloat16)
+    return (codes(), codes(), sc(), sc())
+
+
+def dequant(kv):
+    """Float32 K and V of a cache tuple (the library yardstick's input)."""
+    from repro_torch.kernels.flash_decode import dequant_tile
+    return dequant_tile(kv[0], kv[2]), dequant_tile(kv[1], kv[3])
+
+
+def kv_token_bytes(kv_bits: int, hkv: int, d: int) -> int:
+    """Cache bytes of one position, K and V: 2 * (4 D) at kv16,
+    2 * (D + 4) at kv8, 2 * (D / 2 + 2 D / 32) at kv4, per KV head."""
+    per = {16: 4 * d, 8: d + 4, 4: d // 2 + 2 * (d // 32)}[kv_bits]
+    return 2 * hkv * per
 
 
 def check_kernels(torch, timer, results) -> None:
@@ -231,29 +291,15 @@ def check_kernels(torch, timer, results) -> None:
     # ---- attention over the llama-7b cache: B 4, S 512, D 128
     b, s, d = 4, 512, 128
 
-    def cache(hkv, kv8):
-        if not kv8:
-            return (randn(b, s, hkv, d), randn(b, s, hkv, d), None, None)
-        codes = lambda: torch.randint(-128, 128, (b, s, hkv, d), generator=gen,
-                                      device=dev, dtype=torch.int8)
-        sc = lambda: torch.rand((b, s, hkv), generator=gen, device=dev) * 0.05 + 0.01
-        return (codes(), codes(), sc(), sc())
+    def cache(hkv, kv_bits):
+        return kv_cache_tensors(torch, gen, (b, s), hkv, d, kv_bits)
 
-    def deq(kv):
-        k, v, ks, vs = kv
-        if ks is None:
-            return k, v
-        return k.float() * ks[..., None], v.float() * vs[..., None]
-
-    def kv_bytes(kv, positions, hkv):
-        per = 2 * hkv * d * kv[0].element_size() + (8 * hkv if kv[2] is not None else 0)
-        return positions * per
-
-    for hkv, gq, kv8, lens in ((32, 1, True, (144, 144, 144, 144)),
-                               (32, 1, True, (0, 1, 257, 512)),
-                               (32, 1, False, (144, 144, 144, 144)),
-                               (8, 4, True, (0, 31, 300, 512))):
-        kv = cache(hkv, kv8)
+    for hkv, gq, kv_bits, lens in ((32, 1, 8, (144, 144, 144, 144)),
+                                   (32, 1, 8, (0, 1, 257, 512)),
+                                   (32, 1, 16, (144, 144, 144, 144)),
+                                   (32, 1, 4, (144, 144, 144, 144)),
+                                   (8, 4, 8, (0, 31, 300, 512))):
+        kv = cache(hkv, kv_bits)
         q = randn(b, hkv, gq, d)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
         want = fd.flash_decode_plain(q, kv[0], kv[1], cur, kv[2], kv[3],
@@ -276,18 +322,18 @@ def check_kernels(torch, timer, results) -> None:
             f"cache copy {fp32_copy} B")
         if peak >= fp32_copy:
             raise RuntimeError("flash_decode materialised the cache")
-        kf, vf = deq(kv)
+        kf, vf = dequant(kv)
         kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
         qt = q.reshape(b, hkv * gq, 1, d)
         mask = (torch.arange(s, device=dev)[None, :] < cur[:, None])[:, None, None, :]
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=gq > 1))
         total = int(sum(lens))
-        nbytes = kv_bytes(kv, total, hkv) + 2 * q.numel() * 4 + 4 * b
+        nbytes = total * kv_token_bytes(kv_bits, hkv, d) + 2 * q.numel() * 4 + 4 * b
         bms, by = bound(nbytes, 4 * d * gq * hkv * total, FP32_OPS_PER_S)
         case = (f"B={b} S={s} Hkv={hkv} G={gq} D={d} "
-                f"{'kv8' if kv8 else 'kv16'} cur_len={list(lens)}")
-        main = kv8 and gq == 1 and lens[0] == 144
+                f"kv{kv_bits} cur_len={list(lens)}")
+        main = kv_bits == 8 and gq == 1 and lens[0] == 144
         _record(results, "flash_decode", case, err, tol,
                 timer(lambda: fd.flash_decode(q, kv[0], kv[1], cur, kv[2], kv[3])),
                 timer(lambda: fd.flash_decode_plain(
@@ -295,12 +341,13 @@ def check_kernels(torch, timer, results) -> None:
                 lib_ms, bms, by, "src/repro/kernels/flash_decode.py:129", main)
 
     c = 128
-    for hkv, gq, kv8, offs, cls, sc in (
-            (32, 1, True, (0, 0, 0, 0), (128, 128, 128, 128), 128),
-            (32, 1, True, (0, 5, 300, 0), (128, 0, 77, 3), 512),
-            (32, 1, False, (0, 0, 0, 0), (128, 128, 128, 128), 128),
-            (8, 4, True, (0, 40, 384, 0), (128, 100, 128, 0), 512)):
-        kv = cache(hkv, kv8)
+    for hkv, gq, kv_bits, offs, cls, sc in (
+            (32, 1, 8, (0, 0, 0, 0), (128, 128, 128, 128), 128),
+            (32, 1, 8, (0, 5, 300, 0), (128, 0, 77, 3), 512),
+            (32, 1, 16, (0, 0, 0, 0), (128, 128, 128, 128), 128),
+            (32, 1, 4, (0, 0, 0, 0), (128, 128, 128, 128), 128),
+            (8, 4, 8, (0, 40, 384, 0), (128, 100, 128, 0), 512)):
+        kv = cache(hkv, kv_bits)
         kv = tuple(None if t is None else t[:, :sc].contiguous() for t in kv)
         q = randn(b, hkv, c, gq, d)
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
@@ -311,7 +358,7 @@ def check_kernels(torch, timer, results) -> None:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = 2e-5 * max(want.abs().max().item(), 1.0)
-        kf, vf = deq(kv)
+        kf, vf = dequant(kv)
         kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
         qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, d)
         rows = torch.arange(c, device=dev)
@@ -323,12 +370,11 @@ def check_kernels(torch, timer, results) -> None:
         attended = sum(min(o + x + 1, sc) for o, n in zip(offs, cls)
                        for x in range(n))
         prefix = sum(min(o + n, sc) for o, n in zip(offs, cls) if n)
-        nbytes = kv_bytes(kv, prefix, hkv) + 2 * q.numel() * 4 + 8 * b
+        nbytes = prefix * kv_token_bytes(kv_bits, hkv, d) + 2 * q.numel() * 4 + 8 * b
         bms, by = bound(nbytes, 4 * d * gq * hkv * attended, FP32_OPS_PER_S)
         case = (f"B={b} C={c} S={sc} Hkv={hkv} G={gq} D={d} "
-                f"{'kv8' if kv8 else 'kv16'} offset={list(offs)} "
-                f"chunk_len={list(cls)}")
-        main = kv8 and gq == 1 and cls[1] == 128
+                f"kv{kv_bits} offset={list(offs)} chunk_len={list(cls)}")
+        main = kv_bits == 8 and gq == 1 and cls[1] == 128
         _record(results, "flash_prefill", case, err, tol,
                 timer(lambda: fp.flash_prefill(q, kv[0], kv[1], off, cl,
                                                kv[2], kv[3])),
@@ -339,7 +385,7 @@ def check_kernels(torch, timer, results) -> None:
                 main)
 
     # the resume contract on the card: a one-token chunk is decode
-    kv = cache(32, True)
+    kv = cache(32, 8)
     q = randn(b, 1, 32, d)
     cur = torch.tensor([1, 100, 257, 512], dtype=torch.int32, device=dev)
     from repro_torch.kernels import ops
@@ -348,6 +394,177 @@ def check_kernels(torch, timer, results) -> None:
         raise RuntimeError("a one-token flash_prefill chunk differs from "
                            "flash_decode")
     log("[kernel] one-token flash_prefill == flash_decode (bit-equal)")
+
+
+def paged_case(torch, gen, lens, hkv, d, ps, kv_bits, max_pages):
+    """Pools for ``max_pages`` pages per sequence, a shuffled page table
+    holding ceil(len / ps) pages per row and -1 past them, and the linear
+    cache the table spells out (same contents, -1 reading page 0)."""
+    b = len(lens)
+    num_pages = b * max_pages
+    perm = torch.randperm(num_pages, generator=torch.Generator().manual_seed(
+        ps + kv_bits + hkv))
+    pt = torch.full((b, max_pages), -1, dtype=torch.int32)
+    used = 0
+    for row, n in enumerate(lens):
+        k = -(-n // ps)
+        pt[row, :k] = perm[used:used + k].to(torch.int32)
+        used += k
+    pt = pt.cuda()
+    pools = kv_cache_tensors(torch, gen, (num_pages, ps), hkv, d, kv_bits)
+    idx = pt.long().clamp_min(0)
+    lin = tuple(None if e is None else
+                e[idx].reshape(b, -1, *e.shape[2:]).contiguous()
+                for e in pools)
+    return pools, pt, lin
+
+
+def check_paged_kernels(torch, timer, results) -> None:
+    """The paged kernels at llama-7b shapes (B 4, Hkv 32, G 1, D 128, pages
+    of 64, a pool of 8 pages per sequence for max_len 512, a shuffled page
+    table with -1 tails), each against its plain version and bit for bit
+    against its linear kernel on the same contents."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+    b, d, max_len = 4, 128, 512
+
+    def sdpa_kv(lin):
+        return tuple(t.transpose(1, 2) for t in dequant(lin))
+
+    for hkv, gq, kv_bits, ps, lens in (
+            (32, 1, 8, 64, (144, 144, 144, 144)),
+            (32, 1, 16, 64, (144, 144, 144, 144)),
+            (32, 1, 4, 64, (144, 144, 144, 144)),
+            (32, 1, 8, 64, (0, 1, 257, 512)),
+            (8, 4, 8, 64, (0, 31, 300, 512)),
+            (32, 1, 8, 16, (0, 17, 144, 512)),
+            (32, 1, 4, 16, (0, 17, 144, 512))):
+        max_pages = max_len // ps
+        pools, pt, lin = paged_case(torch, gen, lens, hkv, d, ps, kv_bits,
+                                    max_pages)
+        q = torch.randn((b, hkv, gq, d), generator=gen, device=dev)
+        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+        want = fd.flash_decode_paged_plain(q, pools[0], pools[1], pt, cur,
+                                           *pools[2:])
+        got = fd.flash_decode_paged(q, pools[0], pools[1], pt, cur, *pools[2:])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-5 * max(want.abs().max().item(), 1.0)
+        if not torch.equal(got, fd.flash_decode(q, lin[0], lin[1], cur,
+                                                *lin[2:])):
+            raise RuntimeError(f"flash_decode_paged kv{kv_bits} page {ps}: "
+                               f"differs from flash_decode on the same "
+                               f"contents")
+        if got[cur == 0].any():
+            raise RuntimeError("flash_decode_paged: a cur_len == 0 row is "
+                               "not zero")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fd.flash_decode_paged(q, pools[0], pools[1], pt, cur, *pools[2:])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        fp32_copy = b * max_len * hkv * d * 4
+        if peak >= fp32_copy:
+            raise RuntimeError("flash_decode_paged materialised the cache")
+        kt, vt = sdpa_kv(lin)
+        qt = q.reshape(b, hkv * gq, 1, d)
+        mask = (torch.arange(kt.shape[2], device=dev)[None, :]
+                < cur[:, None])[:, None, None, :]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=gq > 1))
+        total = int(sum(lens))
+        pages_read = sum(-(-n // ps) for n in lens)
+        nbytes = (total * kv_token_bytes(kv_bits, hkv, d) + 4 * pages_read
+                  + 2 * q.numel() * 4 + 4 * b)
+        bms, by = bound(nbytes, 4 * d * gq * hkv * total, FP32_OPS_PER_S)
+        case = (f"B={b} pages of {ps}, {max_pages}/seq, Hkv={hkv} G={gq} "
+                f"D={d} kv{kv_bits} cur_len={list(lens)}")
+        log(f"[kernel] flash_decode_paged {case}: equals flash_decode bit "
+            f"for bit; peak extra memory {peak} B < {fp32_copy} B")
+        main = kv_bits == 8 and gq == 1 and ps == 64 and lens[0] == 144
+        _record(results, "flash_decode_paged", case, err, tol,
+                timer(lambda: fd.flash_decode_paged(q, pools[0], pools[1], pt,
+                                                    cur, *pools[2:])),
+                timer(lambda: fd.flash_decode_paged_plain(
+                    q, pools[0], pools[1], pt, cur, *pools[2:]), reps=5),
+                lib_ms, bms, by, "src/repro/kernels/flash_decode.py:216",
+                main)
+
+    c = 128
+    for hkv, gq, kv_bits, ps, offs, cls in (
+            (32, 1, 8, 64, (0, 0, 0, 0), (128, 128, 128, 128)),
+            (32, 1, 16, 64, (0, 0, 0, 0), (128, 128, 128, 128)),
+            (32, 1, 4, 64, (0, 0, 0, 0), (128, 128, 128, 128)),
+            (32, 1, 8, 64, (0, 5, 300, 0), (128, 0, 77, 3)),
+            (8, 4, 8, 64, (0, 40, 384, 0), (128, 100, 128, 0)),
+            (32, 1, 8, 16, (0, 21, 384, 64), (128, 1, 128, 0)),
+            (32, 1, 4, 16, (0, 21, 384, 64), (128, 1, 128, 0))):
+        max_pages = max_len // ps
+        ends = [o + n for o, n in zip(offs, cls)]
+        pools, pt, lin = paged_case(torch, gen, ends, hkv, d, ps, kv_bits,
+                                    max_pages)
+        q = torch.randn((b, hkv, c, gq, d), generator=gen, device=dev)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        cl = torch.tensor(cls, dtype=torch.int32, device=dev)
+        want = fp.flash_prefill_paged_plain(q, pools[0], pools[1], pt, off,
+                                            cl, *pools[2:])
+        got = fp.flash_prefill_paged(q, pools[0], pools[1], pt, off, cl,
+                                     *pools[2:])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-5 * max(want.abs().max().item(), 1.0)
+        if not torch.equal(got, fp.flash_prefill(q, lin[0], lin[1], off, cl,
+                                                 *lin[2:])):
+            raise RuntimeError(f"flash_prefill_paged kv{kv_bits} page {ps}: "
+                               f"differs from flash_prefill on the same "
+                               f"contents")
+        kt, vt = sdpa_kv(lin)
+        qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, d)
+        rows = torch.arange(c, device=dev)
+        mask = ((torch.arange(kt.shape[2], device=dev)[None, None, :]
+                 <= off[:, None, None] + rows[None, :, None])
+                & (rows[None, :, None] < cl[:, None, None]))[:, None]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=gq > 1))
+        attended = sum(o + x + 1 for o, n in zip(offs, cls) for x in range(n))
+        prefix = sum(e for e, n in zip(ends, cls) if n)
+        pages_read = sum(-(-e // ps) for e, n in zip(ends, cls) if n)
+        nbytes = (prefix * kv_token_bytes(kv_bits, hkv, d) + 4 * pages_read
+                  + 2 * q.numel() * 4 + 8 * b)
+        bms, by = bound(nbytes, 4 * d * gq * hkv * attended, FP32_OPS_PER_S)
+        case = (f"B={b} C={c} pages of {ps}, {max_pages}/seq, Hkv={hkv} "
+                f"G={gq} D={d} kv{kv_bits} offset={list(offs)} "
+                f"chunk_len={list(cls)}")
+        log(f"[kernel] flash_prefill_paged {case}: equals flash_prefill bit "
+            f"for bit")
+        main = kv_bits == 8 and gq == 1 and ps == 64 and cls[1] == 128
+        _record(results, "flash_prefill_paged", case, err, tol,
+                timer(lambda: fp.flash_prefill_paged(q, pools[0], pools[1],
+                                                     pt, off, cl, *pools[2:])),
+                timer(lambda: fp.flash_prefill_paged_plain(
+                    q, pools[0], pools[1], pt, off, cl, *pools[2:]), reps=5),
+                lib_ms, bms, by, "src/repro/kernels/flash_prefill.py:239",
+                main)
+
+    # the resume contract over pages: a one-token paged chunk is decode
+    for kv_bits in (16, 8, 4):
+        lens = (1, 64, 65, 512)
+        pools, pt, _ = paged_case(torch, gen, lens, 32, d, 64, kv_bits, 8)
+        q = torch.randn((b, 1, 32, d), generator=gen, device=dev)
+        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if not torch.equal(
+                ops.flash_decode(q, pools, cur, page_table=pt),
+                ops.flash_prefill(q, pools, cur - 1, torch.ones_like(cur),
+                                  page_table=pt)):
+            raise RuntimeError(f"kv{kv_bits}: a one-token flash_prefill_paged "
+                               f"chunk differs from flash_decode_paged")
+    log("[kernel] one-token flash_prefill_paged == flash_decode_paged "
+        "(bit-equal, kv16/kv8/kv4)")
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +587,8 @@ ROW_SHARE = 0.9
 A16_TOL = 1e-3
 
 
-def serve_w4a4(torch) -> dict:
+def serve_w4a4(torch, params) -> tuple[dict, list]:
+    """Phase 3; returns the launch counts and the greedy streams."""
     import numpy as np
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
@@ -379,13 +597,11 @@ def serve_w4a4(torch) -> dict:
     if LAYERS != 32:
         log(f"[serve] depth cut to {LAYERS} of 32 layers")
     _lib.reset_launches()
-    t0 = time.perf_counter()
-    out = serve.serve(args)
+    out = serve.serve(args, params)
     counts = dict(_lib.LAUNCHES)
     log(f"[serve] {out['cfg'].name} x{LAYERS} w4a4 g128 kv8: {out['generated']} "
         f"tokens in {out['seconds']:.3f} s = {out['tokens_per_s']:.2f} tok/s "
-        f"(prefill of 4x128 included; init+quantize "
-        f"{time.perf_counter() - t0 - out['seconds']:.1f} s)")
+        f"(prefill of 4x128 included)")
     steps = out["step_seconds"]
     log(f"[serve] first step (admission + prefill + one decode) "
         f"{steps[0]:.4f} s; decode step median "
@@ -406,16 +622,7 @@ def serve_w4a4(torch) -> dict:
     # teacher-forced checks against the plain versions on the card
     prompts = torch.from_numpy(np.stack(out["prompts"]))
     gen = torch.tensor([r.out_tokens for r in reqs], dtype=torch.int32)
-    share, n_rows, worst = blockwise_check(torch, out, prompts, gen)
-    log(f"[serve] per-block teacher-forced kernels vs plain (prefill + 8 "
-        f"decode steps, every layer): {share['block']:.4f} of "
-        f"{n_rows['block']} block-output token rows and {share['logit']:.4f} "
-        f"of {n_rows['logit']} logit rows agree to {ROW_TOL:.0e} (gate "
-        f"{ROW_SHARE} each); largest row difference {worst[0]:.3e} at "
-        f"{worst[1]}")
-    if not min(share.values()) >= ROW_SHARE:
-        raise RuntimeError("serve: blocks of the kernel path disagree with "
-                           "the plain versions")
+    gate_blockwise(torch, "serve", out, prompts, gen)
     a, p = teacher_forced_logits(torch, out, prompts, gen)
     if not (torch.isfinite(a).all() and a.shape == (4, 9, vocab)):
         raise RuntimeError("serve: non-finite or misshaped logits")
@@ -430,9 +637,24 @@ def serve_w4a4(torch) -> dict:
     if stream != 1.0:
         raise RuntimeError("serve: the engine's stream differs from the "
                            "teacher-forced kernel path")
-    del out
+    streams = [list(r.out_tokens) for r in reqs]
+    del out, a, p
     torch.cuda.empty_cache()
-    return counts
+    return counts, streams
+
+
+def gate_blockwise(torch, tag, out, prompts, gen, **paged) -> None:
+    """The per-block teacher-forced check, logged and gated at ROW_SHARE."""
+    share, n_rows, worst = blockwise_check(torch, out, prompts, gen, **paged)
+    log(f"[{tag}] per-block teacher-forced kernels vs plain (prefill + 8 "
+        f"decode steps, every layer): {share['block']:.4f} of "
+        f"{n_rows['block']} block-output token rows and {share['logit']:.4f} "
+        f"of {n_rows['logit']} logit rows agree to {ROW_TOL:.0e} (gate "
+        f"{ROW_SHARE} each); largest row difference {worst[0]:.3e} at "
+        f"{worst[1]}")
+    if not min(share.values()) >= ROW_SHARE:
+        raise RuntimeError(f"{tag}: blocks of the kernel path disagree with "
+                           f"the plain versions")
 
 
 def teacher_forced_logits(torch, out, prompts, gen, steps: int = 8):
@@ -455,29 +677,41 @@ def teacher_forced_logits(torch, out, prompts, gen, steps: int = 8):
     return logits
 
 
-def blockwise_check(torch, out, prompts, gen, steps: int = 8):
+def blockwise_check(torch, out, prompts, gen, steps: int = 8,
+                    page_size: int = 0, chunk: int = 0):
     """Every block of the kernel path, fed the plain path's input hidden
-    state, against the plain block: whole-prompt prefill, then ``steps``
-    teacher-forced decode steps.  The integer matmul kernel is bit-equal to
-    its plain version, so both paths write identical K/V and the caches stay
-    equal; only the attention kernels' summation order differs.  A token
-    row therefore comes out equal to a few ulps, unless such an ulp moved
-    one of its a4 activation codes by one step, which changes that row by up
-    to ~10%.  Returns (share of rows agreeing to ROW_TOL, rows, (largest
-    row difference, where))."""
-    from repro_torch.serve.kv_cache import chunk_write_index
+    state, against the plain block: prefill (whole, or in chunks of
+    ``chunk`` rows), then ``steps`` teacher-forced decode steps, over the
+    linear cache or (``page_size``) over page pools with identical page
+    tables.  The integer matmul kernel is bit-equal to its plain version,
+    so both paths write identical K/V and the caches stay equal; only the
+    attention kernels' summation order differs.  A token row therefore
+    comes out equal to a few ulps, unless such an ulp moved one of its a4
+    activation codes by one step, which changes that row by up to ~10%.
+    Returns (share of rows agreeing to ROW_TOL, rows, (largest row
+    difference, where))."""
+    from repro_torch.serve import kv_cache as kvc
     from repro_torch.serve.quantized import QuantizedModel, _layer
     cfg, params = out["cfg"], out["params"]
     dev = out["model"].device
     models = [QuantizedModel(cfg, out["qcfg"], mode=m, device=dev)
               for m in ("auto", "plain")]
-    caches = [m.init_cache(prompts.shape[0], 512) for m in models]
     tokens = prompts.to(dev)
-    b, c = tokens.shape
-    offset = torch.zeros(b, dtype=torch.int32, device=dev)
-    cl = torch.full((b,), c, dtype=torch.int32, device=dev)
-    pos = torch.arange(c, device=dev)[None].expand(b, c)
-    write = chunk_write_index(offset, cl, c, 512)
+    b, t = tokens.shape
+    pt = None
+    if page_size:
+        stores = [kvc.PagedCache(m, b, 512, page_size) for m in models]
+        for st in stores:
+            for slot in range(b):
+                if not st.reserve(slot, t + steps):
+                    raise RuntimeError("blockwise_check: pool too small")
+        caches = [st.cache for st in stores]
+        pt = caches[0].page_table
+        if not torch.equal(pt, caches[1].page_table):
+            raise RuntimeError("blockwise_check: page tables differ")
+        rows = caches[0].num_pages * page_size
+    else:
+        caches = [m.init_cache(b, 512) for m in models]
     stats = {k: {"agree": 0, "rows": 0} for k in ("block", "logit")}
     worst = [0.0, ""]
 
@@ -494,28 +728,49 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8):
         compare(models[0]._head(params, ya), models[1]._head(params, yp),
                 where + " logits", "logit")
 
-    x = params["embed"][tokens.long()]
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        ya, yp = (m._block_prefill_chunk(lp, x, m._kv_entries(cc, i), pos,
-                                         offset, cl, write)
-                  for m, cc in zip(models, caches))
-        compare(ya, yp, f"prefill layer {i}")
-        x = yp
-    logits(ya[:, -1:], yp[:, -1:], "prefill")
-    cur = cl.clone()
-    for step in range(steps):
-        x = params["embed"][gen[:, step:step + 1].to(dev).long()]
+    chunk = chunk or t
+    for c0 in range(0, t, chunk):
+        c = min(chunk, t - c0)
+        offset = torch.full((b,), c0, dtype=torch.int32, device=dev)
+        cl = torch.full((b,), c, dtype=torch.int32, device=dev)
+        pos = offset[:, None] + torch.arange(c, device=dev)[None]
+        if page_size:
+            write = kvc.paged_chunk_write_index(kvc.chunk_write_dest(
+                pt, offset, cl, c, page_size, rows // page_size), rows)
+        else:
+            write = kvc.chunk_write_index(offset, cl, c, 512)
+        x = params["embed"][tokens[:, c0:c0 + c].long()]
         for i in range(cfg.num_layers):
             lp = _layer(params["layers"], i)
-            ya, yp = (m._block_decode(lp, x, m._kv_entries(cc, i), cur)
+            ya, yp = (m._block_prefill_chunk(lp, x, m._kv_entries(cc, i), pos,
+                                             offset, cl, write, pt)
                       for m, cc in zip(models, caches))
+            compare(ya, yp, f"prefill rows {c0}.. layer {i}")
+            x = yp
+    logits(ya[:, -1:], yp[:, -1:], "prefill")
+    cur = torch.full((b,), t, dtype=torch.int32, device=dev)
+    for step in range(steps):
+        x = params["embed"][gen[:, step:step + 1].to(dev).long()]
+        if page_size:
+            write = kvc.token_write_index(kvc.token_write_dest(
+                pt, cur, page_size, rows // page_size), rows)
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            if page_size:
+                ya, yp = (m._block_decode_paged(
+                    lp, x, m._kv_entries(cc, i), cur, pt, write,
+                    cc.capacity) for m, cc in zip(models, caches))
+            else:
+                ya, yp = (m._block_decode(lp, x, m._kv_entries(cc, i), cur)
+                          for m, cc in zip(models, caches))
             compare(ya, yp, f"decode step {step} layer {i}")
             x = yp
         logits(ya, yp, f"decode step {step}")
         cur = cur + 1
-    if not all(torch.equal(caches[0][k], caches[1][k]) for k in caches[0]
-               if k != "len"):
+    same = all(torch.equal(a, p) for a, p in zip(
+        models[0]._kv_entries(caches[0], slice(None)),
+        models[1]._kv_entries(caches[1], slice(None))))
+    if not same:
         raise RuntimeError("the kernel and plain paths wrote different K/V")
     return ({k: v["agree"] / v["rows"] for k, v in stats.items()},
             {k: v["rows"] for k, v in stats.items()}, tuple(worst))
@@ -550,6 +805,119 @@ def serve_a16(torch) -> dict:
         f"{A16_TOL:.0e}); greedy agreement {agree:.4f}")
     if not (torch.isfinite(a).all() and rel <= A16_TOL):
         raise RuntimeError("serve-a16: kernels and plain versions disagree")
+    del out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _with(argv: list, **flags) -> list:
+    """SERVE_ARGS with ``--flag value`` pairs replaced or added
+    (``value is True`` adds a bare switch)."""
+    argv = list(argv)
+    for name, value in flags.items():
+        flag = "--" + name.replace("_", "-")
+        if value is True:
+            argv.append(flag)
+        elif flag in argv:
+            argv[argv.index(flag) + 1] = str(value)
+        else:
+            argv += [flag, str(value)]
+    return argv
+
+
+def _serve_paged_run(torch, tag, params, **flags):
+    """One paged serving run through the CLI's entry point; returns the
+    output and its launch counts."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(
+        _with(SERVE_ARGS, layers=LAYERS, paged=True, **flags))
+    _lib.reset_launches()
+    out = serve.serve(args, params)
+    counts = dict(_lib.LAUNCHES)
+    kv = out["engine"]._kv
+    steps = out["step_seconds"]
+    log(f"[{tag}] {out['cfg'].name} x{LAYERS} {out['qcfg'].tag()} paged "
+        f"(page {args.page_size}, {kv.allocator.num_pages} pages, prefill "
+        f"chunk {args.prefill_chunk or 'whole prompt'}): {out['generated']} "
+        f"tokens in {out['seconds']:.3f} s = {out['tokens_per_s']:.2f} tok/s; "
+        f"decode step median {statistics.median(steps[1:]) * 1e3:.2f} ms over "
+        f"{len(steps) - 1} steps; preemptions {out['preemptions']}")
+    log(f"[{tag}] pool bytes {kv.cache.pool_bytes} (KV bytes with page "
+        f"tables and lens {out['kv_bytes']}); peak pages in use "
+        f"{kv.allocator.peak_in_use}; launches {counts}")
+    bad = [r.rid for r in out["requests"]
+           if r.status.name != "COMPLETED" or len(r.out_tokens) != args.max_new]
+    if bad:
+        raise RuntimeError(f"{tag}: requests {bad} did not complete with "
+                           f"{args.max_new} tokens")
+    kv.verify()
+    if kv.allocator.num_free != kv.allocator.num_pages:
+        raise RuntimeError(f"{tag}: pages leaked")
+    return out, counts
+
+
+def serve_paged(torch, params, base_streams) -> dict:
+    """Phase 5: the phase-3 model and requests over page pools; (a) whole
+    prompts into an automatic pool, (b) chunks of 64 into a 10-page pool."""
+    import numpy as np
+    out, counts = _serve_paged_run(torch, "paged-a", params, page_size=64)
+    streams = [r.out_tokens for r in out["requests"]]
+    if counts["flash_decode_paged"] <= 0 or counts["flash_decode"] != 0:
+        raise RuntimeError("paged-a: decode did not run flash_decode_paged "
+                           "alone")
+    if streams != base_streams:
+        raise RuntimeError("paged-a: the paged streams differ from the "
+                           "linear streams of phase 3")
+    log("[paged-a] greedy streams equal phase 3's linear streams token for "
+        "token")
+    del out
+    out, counts_b = _serve_paged_run(torch, "paged-b", params, page_size=64,
+                                     prefill_chunk=64, num_pages=10)
+    if out["preemptions"] < 1:
+        raise RuntimeError("paged-b: the 10-page pool never preempted")
+    for name in ("flash_prefill_paged", "flash_decode_paged"):
+        if counts_b[name] <= 0:
+            raise RuntimeError(f"paged-b: {name} was never launched")
+    if out["engine"]._kv.cache.pool_bytes != 173_015_040:
+        raise RuntimeError("paged-b: the kv8 pool is not 10 pages x 64 x "
+                           "8,448 B x 32 layers")
+    streams_b = [r.out_tokens for r in out["requests"]]
+    same = sum(a == b for s, t in zip(streams_b, base_streams)
+               for a, b in zip(s, t))
+    log(f"[paged-b] streams vs phase 3: {same} of {32 * len(base_streams)} "
+        f"tokens equal, {sum(s == t for s, t in zip(streams_b, base_streams))} "
+        f"of {len(base_streams)} streams identical (reported, not gated: "
+        f"chunked and resumed prefill change the row count of float "
+        f"reductions, and at a4 an ulp can move a code)")
+    prompts = torch.from_numpy(np.stack(out["prompts"]))
+    gen = torch.tensor(streams_b, dtype=torch.int32)
+    gate_blockwise(torch, "paged-b", out, prompts, gen, page_size=64,
+                   chunk=64)
+    for name, n in counts_b.items():
+        counts[name] += n
+    del out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_kv4(torch, params) -> dict:
+    """Phase 6: the phase-3 model at kv4 over page pools, chunked."""
+    import numpy as np
+    out, counts = _serve_paged_run(torch, "kv4", params, kvbits=4,
+                                   max_new=8, page_size=64, prefill_chunk=64)
+    for name in ("flash_prefill_paged", "flash_decode_paged"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"kv4: {name} was never launched")
+    kv = out["engine"]._kv
+    per_token = kv.cache.pool_bytes // (kv.allocator.num_pages * 64 * LAYERS)
+    log(f"[kv4] pool bytes per token per layer {per_token} (kv8: 8448)")
+    if per_token != 4608:
+        raise RuntimeError("kv4: the pool is not 4,608 B per token per layer")
+    prompts = torch.from_numpy(np.stack(out["prompts"]))
+    gen = torch.tensor([r.out_tokens for r in out["requests"]],
+                       dtype=torch.int32)
+    gate_blockwise(torch, "kv4", out, prompts, gen, page_size=64, chunk=64)
     del out
     torch.cuda.empty_cache()
     return counts

@@ -2,13 +2,15 @@
 
 A second package beside the JAX reference (``src/repro``).  It serves a
 llama-family model from packed w{2,4,8} ``QTensor`` weights with per-token
-dynamic a4/a8 activations and an int8 (kv8) or fp (kv16) linear KV cache,
-through four CUDA C++ kernels written for Hopper (``csrc/``):
+dynamic a4/a8 activations and a kv4, kv8 or fp KV cache, linear or paged,
+through six CUDA C++ kernels written for Hopper (``csrc/``):
 
-    w4a8_matmul     every linear at a_bits < 16
-    dequant_matmul  every linear at a16
-    flash_decode    one-token attention over the cache as stored
-    flash_prefill   chunked causal attention over the cache as stored
+    w4a8_matmul          every linear at a_bits < 16
+    dequant_matmul       every linear at a16
+    flash_decode         one-token attention over the linear cache as stored
+    flash_prefill        chunked causal attention over the linear cache
+    flash_decode_paged   flash_decode over page pools and a page table
+    flash_prefill_paged  flash_prefill over page pools and a page table
 
 Entry points default to ``device="cuda"``; the CPU runs only when the caller
 asks for it, and then every kernel wrapper runs its plain PyTorch version.

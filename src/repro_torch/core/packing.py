@@ -55,3 +55,27 @@ def unpack(packed: torch.Tensor, bits: int, d_in: int) -> torch.Tensor:
     vals = [(lane >> (j * bits)) & mask for j in range(PACK_GROUP)]
     codes = torch.stack(vals, dim=-2)     # (..., n_units, 8, d_out)
     return codes.reshape(*lead, d_in, d_out).to(torch.uint8)
+
+
+def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """Pack signed int4 codes (values in [-8, 7]) two per byte along the
+    last axis: (..., D) -> (..., D // 2) int8.  Byte ``j`` holds value
+    ``2j`` in its low nibble and value ``2j + 1`` in its high nibble (the
+    kv4 cache layout)."""
+    d = codes.shape[-1]
+    if d % 2 != 0:
+        raise ValueError(f"pack_nibbles needs an even last axis (two codes "
+                         f"per byte); got D={d}")
+    c = codes.to(torch.int32) & 0xF
+    return (c[..., 0::2] | (c[..., 1::2] << 4)).to(torch.int8)
+
+
+def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_nibbles`: (..., D // 2) int8 -> (..., D)
+    int32, sign-extended back to [-8, 7] (``<< 28 >> 28`` for the low
+    nibble, ``>> 4`` for the high one)."""
+    xi = packed.to(torch.int32)
+    lo = (xi << 28) >> 28
+    hi = xi >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1],
+                                                 packed.shape[-1] * 2)

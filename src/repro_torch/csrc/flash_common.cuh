@@ -1,22 +1,32 @@
-// Block body shared by flash_decode.cu and flash_prefill.cu.
+// Block body shared by flash_decode.cu and flash_prefill.cu, linear and
+// paged.
 //
 // A block owns up to RT query rows of one (batch, kv-head) pair; row r
 // attends the cache positions [0, end[r]) of that pair and end[r] == 0 means
 // a zero output row.  Decode gives its G folded query heads end = cur_len;
 // prefill gives chunk row (c, g) end = offset + c + 1 while c < chunk_len.
 // Sharing the body is what makes a one-token prefill chunk equal decode on
-// the same cache bit for bit.
+// the same cache bit for bit, and a paged kernel equal its linear kernel:
+// the two layouts differ only in the cache row that position p maps to
+// (p itself, or page_table[p / page] * page + p % page), which each tile
+// resolves once per position, so a 32-position tile may span pages of any
+// size.  Only pages below ceil(end / page) are looked up; a -1 entry there
+// reads pool page 0, as the reference's gather does.
 //
 // The KV walk is a loop inside the block (the TPU kernel's sequential grid
 // axis): tiles of T = 32 positions up to max_r end[r], so work and reads
-// stop at the valid prefix.  Each tile is read from the cache as stored
-// (int8 codes * per-(token, head) float32 scale, or float32) and
+// stop at the valid prefix.  Each tile is read from the cache as stored and
 // dequantized into shared memory; no float copy of the cache is ever
-// written to device memory.  Scores are float32 dots scaled by 1/sqrt(D)
-// after the sum, as the plain version does; the softmax is online in
-// float32 (running max, running sum, rescale by exp(m_old - m_new)) with
-// the reference's -1e30 initial max.  A masked position never enters the
-// p @ v sum at all (a NaN left in a stale slot cannot leak through 0 * NaN).
+// written to device memory.  Three formats (KVB):
+//   16  float32 values;
+//    8  int8 codes times a float32 scale per (token, head);
+//    4  two int4 codes per byte along D (low nibble first, sign-extended)
+//       times a bfloat16 scale per 32 values, widened to float32 exactly.
+// Scores are float32 dots scaled by 1/sqrt(D) after the sum, as the plain
+// version does; the softmax is online in float32 (running max, running
+// sum, rescale by exp(m_old - m_new)) with the reference's -1e30 initial
+// max.  A masked position never enters the p @ v sum at all (a NaN left in
+// a stale slot cannot leak through 0 * NaN).
 //
 // Threads: 4 warps.  Scores: lane = position in the tile, warp = row
 // (RT / 4 rows each), rows padded by one float in shared memory against
@@ -27,34 +37,88 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace aq {
 
 constexpr int FLASH_T = 32;
 constexpr int FLASH_THREADS = 128;
 constexpr float FLASH_MASK = -1e30f;
+constexpr int KV4_BLOCK = 32;
+
+// Where the cache of one (batch, kv-head) pair lives.  Byte pointers to
+// position 0 (linear) or pool row 0 (paged) of the pair's head; cache row
+// `row` of it is at k + row * row_bytes (codes or floats) and
+// ks + row * srow_bytes (scales).
+struct KVView {
+  const char* k;
+  const char* v;
+  const char* ks;
+  const char* vs;
+  long long row_bytes;
+  long long srow_bytes;
+  const int* pt;   // the pair's page-table row; nullptr for the linear cache
+  int page;        // page size (paged)
+};
+
+// The view of head h at cache row `row0` (b * S linear, 0 paged) of
+// caches (rows, Hkv, Dk) with scales (rows, Hkv[, D / 32]).
+template <int KVB>
+__device__ __forceinline__ KVView kv_view(const void* k, const void* v,
+                                          const void* ks, const void* vs,
+                                          int Hkv, int D, int h,
+                                          long long row0) {
+  const long long elt = KVB == 16 ? 4 : 1;
+  const long long dk = KVB == 4 ? D / 2 : D;
+  const long long sbytes = KVB == 4 ? (D / KV4_BLOCK) * 2 : (KVB == 8 ? 4 : 0);
+  KVView kv;
+  kv.row_bytes = Hkv * dk * elt;
+  kv.srow_bytes = Hkv * sbytes;
+  const long long off = row0 * kv.row_bytes + h * dk * elt;
+  const long long soff = row0 * kv.srow_bytes + h * sbytes;
+  kv.k = static_cast<const char*>(k) + off;
+  kv.v = static_cast<const char*>(v) + off;
+  kv.ks = KVB == 16 ? nullptr : static_cast<const char*>(ks) + soff;
+  kv.vs = KVB == 16 ? nullptr : static_cast<const char*>(vs) + soff;
+  kv.pt = nullptr;
+  kv.page = 0;
+  return kv;
+}
+
+// Value d of cache row `row`, dequantized to float32.
+template <int KVB>
+__device__ __forceinline__ float kv_value(const char* base, const char* sbase,
+                                          long long row, long long row_bytes,
+                                          long long srow_bytes, int d) {
+  const char* r = base + row * row_bytes;
+  if (KVB == 16) return reinterpret_cast<const float*>(r)[d];
+  if (KVB == 8)
+    return (float)reinterpret_cast<const int8_t*>(r)[d] *
+           *reinterpret_cast<const float*>(sbase + row * srow_bytes);
+  const int x = (int)reinterpret_cast<const int8_t*>(r)[d >> 1];
+  const int code = (d & 1) ? (x >> 4) : ((int)((unsigned)x << 28) >> 28);
+  const unsigned bits = *reinterpret_cast<const uint16_t*>(
+      sbase + row * srow_bytes + (d / KV4_BLOCK) * 2);
+  return (float)code * __uint_as_float(bits << 16);
+}
 
 template <int RT>
 __host__ __device__ inline int flash_smem_bytes(int D) {
   return (int)sizeof(float) *
-         (RT * (D + 1) + FLASH_T * (D + 1) + FLASH_T * D + RT * FLASH_T + 3 * RT) +
-         (int)sizeof(int) * RT;
+             (RT * (D + 1) + FLASH_T * (D + 1) + FLASH_T * D + RT * FLASH_T + 3 * RT) +
+         (int)sizeof(int) * (RT + FLASH_T);
 }
 
-// The per-row prefix lengths, last in shared memory; the caller fills them
-// (zeros for rows past nrows) and synchronises before flash_rows.
+// The per-row prefix lengths, after the floats in shared memory; the caller
+// fills them (zeros for rows past nrows) and synchronises before flash_rows.
 template <int RT>
 __device__ __forceinline__ int* flash_ends(float* smem, int D) {
   return reinterpret_cast<int*>(
       smem + RT * (D + 1) + FLASH_T * (D + 1) + FLASH_T * D + RT * FLASH_T + 3 * RT);
 }
 
-// kv: (b, h)-offset base of the cache entry; position p of that pair is at
-// element p * Hkv * D (codes / floats) and p * Hkv (scales).
-template <int RT, bool INT8>
-__device__ void flash_rows(const float* __restrict__ q, const void* __restrict__ kv_k,
-                           const void* __restrict__ kv_v,
-                           const float* __restrict__ k_scale,
-                           const float* __restrict__ v_scale, int Hkv, int D,
+template <int RT, int KVB>
+__device__ void flash_rows(const float* __restrict__ q, const KVView kv, int D,
                            float scale, int nrows, float* __restrict__ out,
                            float* smem) {
   float* qs = smem;                          // RT x (D+1)
@@ -65,6 +129,7 @@ __device__ void flash_rows(const float* __restrict__ q, const void* __restrict__
   float* ls = ms + RT;                       // RT
   float* cs = ls + RT;                       // RT
   const int* ends = flash_ends<RT>(smem, D);  // RT, filled by the caller
+  int* rows = flash_ends<RT>(smem, D) + RT;  // T: cache row of each position
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   constexpr int RPW = RT / 4;                // rows per warp
@@ -81,25 +146,24 @@ __device__ void flash_rows(const float* __restrict__ q, const void* __restrict__
   for (int c = 0; c < 2; ++c)
 #pragma unroll
     for (int r = 0; r < RT; ++r) acc[c][r] = 0.f;
-  const long long stride = (long long)Hkv * D;
   __syncthreads();
 
   for (int t0 = 0; t0 < max_end; t0 += FLASH_T) {
     const int tn = min(FLASH_T, max_end - t0);
+    if (tid < tn) {
+      const int pos = t0 + tid;
+      rows[tid] = kv.pt == nullptr
+                      ? pos
+                      : max(kv.pt[pos / kv.page], 0) * kv.page + pos % kv.page;
+    }
+    __syncthreads();
     for (int i = tid; i < tn * D; i += FLASH_THREADS) {
-      int p = i / D, d = i % D;
-      long long e = (long long)(t0 + p) * stride + d;
-      float kf, vf;
-      if (INT8) {
-        long long si = (long long)(t0 + p) * Hkv;
-        kf = (float)static_cast<const int8_t*>(kv_k)[e] * k_scale[si];
-        vf = (float)static_cast<const int8_t*>(kv_v)[e] * v_scale[si];
-      } else {
-        kf = static_cast<const float*>(kv_k)[e];
-        vf = static_cast<const float*>(kv_v)[e];
-      }
-      ks[p * (D + 1) + d] = kf;
-      vs[p * D + d] = vf;
+      const int p = i / D, d = i % D;
+      const long long row = rows[p];
+      ks[p * (D + 1) + d] =
+          kv_value<KVB>(kv.k, kv.ks, row, kv.row_bytes, kv.srow_bytes, d);
+      vs[p * D + d] =
+          kv_value<KVB>(kv.v, kv.vs, row, kv.row_bytes, kv.srow_bytes, d);
     }
     __syncthreads();
 #pragma unroll
@@ -159,6 +223,22 @@ __device__ void flash_rows(const float* __restrict__ q, const void* __restrict__
     for (int r = 0; r < RT; ++r)
       if (r < nrows)
         out[(long long)r * D + d] = ends[r] > 0 ? acc[c][r] / fmaxf(ls[r], 1e-30f) : 0.f;
+  }
+}
+
+// Launch-side helpers: check the shapes the kernels take, and call
+// f(std::integral_constant<int, KVB>) for the cache format code.
+inline bool flash_shapes_ok(int D, int kv_bits) {
+  return D > 0 && D <= 2 * FLASH_THREADS && (kv_bits != 4 || D % KV4_BLOCK == 0);
+}
+
+template <typename F>
+inline int with_kv_format(int kv_bits, F f) {
+  switch (kv_bits) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"dequant_matmul": 0, "w4a8_matmul": 0, "flash_decode": 0,
-            "flash_prefill": 0}
+            "flash_prefill": 0, "flash_decode_paged": 0,
+            "flash_prefill_paged": 0}
 BUILD_INFO: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,12 +46,19 @@ _SIGNATURES = {
     # x, xq, a_scale, rsum, packed, scale, zp, out, M, K, N, bits, group,
     # a_bits, stream
     "aq_w4a8_matmul": [_P] * 8 + [_I] * 6 + [_P],
+    # The flash entries take the cache format as kv_bits: 16, 8 or 4.
     # q, k, v, k_scale, v_scale, cur_len, out, B, S, Hkv, G, D, scale,
-    # kv_int8, stream
+    # kv_bits, stream
     "aq_flash_decode": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, page_table, cur_len, out, B, page,
+    # max_pages, Hkv, G, D, scale, kv_bits, stream
+    "aq_flash_decode_paged": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, offset, chunk_len, out, B, S, Hkv, C, G, D,
-    # scale, kv_int8, stream
+    # scale, kv_bits, stream
     "aq_flash_prefill": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, page_table, offset, chunk_len, out, B,
+    # page, max_pages, Hkv, C, G, D, scale, kv_bits, stream
+    "aq_flash_prefill_paged": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
 }
 _LIB = None
 

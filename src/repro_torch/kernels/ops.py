@@ -1,10 +1,11 @@
-"""Dispatch around the four kernels, in the serving model's layouts.
+"""Dispatch around the kernels, in the serving model's layouts.
 
 ``mode="auto"``: each kernel wrapper runs its CUDA kernel for CUDA tensors
 and its plain version for CPU tensors.  ``mode="plain"``: the plain version
 on any device (the on-card reference the kernels are held against).
 Matmuls take x (..., K) and a :class:`QTensor`; attention takes q in the
-model's (B, T, Hq, D) layout and the cache tuple as stored.
+model's (B, T, Hq, D) layout and the cache tuple as stored (linear, or
+page pools with a ``page_table``).
 """
 from __future__ import annotations
 
@@ -83,35 +84,70 @@ def _block(s: int, block_kv: Optional[int]) -> int:
     return s if bkv > s or s % bkv else bkv
 
 
+def _paged_shapes(q, k, k_scale, page_table) -> None:
+    """The reference's shape checks of the paged route: pools
+    (P, page_size, Hkv, Dk), a (B, max_pages) page table."""
+    b, d = q.shape[0], q.shape[-1]
+    packed = fd.kv_bits_of(k, k_scale) == 4
+    dk = d // 2 if packed else d
+    if k.ndim != 4 or k.shape[-1] != dk:
+        raise ValueError(f"paged kv pools must be (P, page_size, Hkv, "
+                         f"{'D//2 packed' if packed else 'D'}); got "
+                         f"{tuple(k.shape)}")
+    if page_table.ndim != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table must be (B, max_pages_per_seq); got "
+                         f"{tuple(page_table.shape)} for B={b}")
+
+
 def flash_decode(q, kv, cur_len, *, scale: Optional[float] = None,
-                 block_kv: Optional[int] = None, mode: str = "auto"):
+                 block_kv: Optional[int] = None, page_table=None,
+                 mode: str = "auto"):
     """q (B, 1, Hq, D), cache tuple as stored, cur_len (B,) valid positions
-    (the just-written token included) -> (B, 1, Hq, D)."""
+    (the just-written token included) -> (B, 1, Hq, D).  With
+    ``page_table`` (B, max_pages) the cache entries are page pools
+    (P, page_size, Hkv, Dk) and ``block_kv`` is ignored."""
     _check_mode(mode)
     k, v, k_scale, v_scale = _unpack_kv(kv)
     b, t, hq, d = q.shape
     if t != 1:
         raise ValueError(f"flash_decode is a one-token kernel; got T={t}")
-    s, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     q4 = q.reshape(b, hkv, hq // hkv, d).contiguous()
-    fn = fd.flash_decode_plain if mode == "plain" else fd.flash_decode
-    out = fn(q4, k, v, cur_len, k_scale, v_scale, scale=scale,
-             block_kv=_block(s, block_kv))
+    if page_table is not None:
+        _paged_shapes(q, k, k_scale, page_table)
+        fn = (fd.flash_decode_paged_plain if mode == "plain"
+              else fd.flash_decode_paged)
+        out = fn(q4, k, v, page_table, cur_len, k_scale, v_scale,
+                 scale=scale)
+    else:
+        fn = fd.flash_decode_plain if mode == "plain" else fd.flash_decode
+        out = fn(q4, k, v, cur_len, k_scale, v_scale, scale=scale,
+                 block_kv=_block(k.shape[1], block_kv))
     return out.reshape(b, 1, hq, d)
 
 
 def flash_prefill(q, kv, offset, chunk_len, *, scale: Optional[float] = None,
-                  block_kv: Optional[int] = None, mode: str = "auto"):
+                  block_kv: Optional[int] = None, page_table=None,
+                  mode: str = "auto"):
     """q (B, C, Hq, D) chunk at ``offset``, cache tuple as stored (chunk
-    K/V already written), chunk_len (B,) valid rows -> (B, C, Hq, D)."""
+    K/V already written), chunk_len (B,) valid rows -> (B, C, Hq, D).
+    With ``page_table`` the cache entries are page pools, as in
+    :func:`flash_decode`."""
     _check_mode(mode)
     k, v, k_scale, v_scale = _unpack_kv(kv)
     b, c, hq, d = q.shape
     if c < 1:
         raise ValueError(f"flash_prefill needs a non-empty chunk; got C={c}")
-    s, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     q5 = q.reshape(b, c, hkv, hq // hkv, d).transpose(1, 2).contiguous()
-    fn = fp.flash_prefill_plain if mode == "plain" else fp.flash_prefill
-    out = fn(q5, k, v, offset, chunk_len, k_scale, v_scale, scale=scale,
-             block_kv=_block(s, block_kv))
+    if page_table is not None:
+        _paged_shapes(q, k, k_scale, page_table)
+        fn = (fp.flash_prefill_paged_plain if mode == "plain"
+              else fp.flash_prefill_paged)
+        out = fn(q5, k, v, page_table, offset, chunk_len, k_scale, v_scale,
+                 scale=scale)
+    else:
+        fn = fp.flash_prefill_plain if mode == "plain" else fp.flash_prefill
+        out = fn(q5, k, v, offset, chunk_len, k_scale, v_scale, scale=scale,
+                 block_kv=_block(k.shape[1], block_kv))
     return out.transpose(1, 2).reshape(b, c, hq, d)

@@ -2,16 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step --arch llama-7b \
         --wbits 4 --group 128 --abits 4 --kvbits 8 --max-batch 4 \
-        --prompt-len 128 --max-len 512 --steps 8
+        --prompt-len 128 --max-len 512 --steps 8 [--paged --page-size 64]
 
 Builds the serving model as ``repro_torch.launch.serve`` does (seeded
 random weights, RTN-packed), prefills ``--max-batch`` prompts, warms up,
 then runs ``--steps`` greedy decode steps twice: timed by the host clock
 alone, and under ``torch.profiler``.  Each step ends in the host readback
-of the sampled tokens, as the Engine's does.  Prints the step's wall time,
-the device's busy time per step (the sum of its kernel and copy intervals:
-one stream, so they do not overlap), the idle share, device events
-(kernels and copies) per step, and device time per step by kernel name.
+of the sampled tokens, as the Engine's does.  With ``--paged`` the
+prefilled cache is spliced into page pools and every step first backs its
+token writes with pages, as the Engine's paged step does.  Prints the
+step's wall time, the device's busy time per step (the sum of its kernel
+and copy intervals: one stream, so they do not overlap), the idle share,
+device events (kernels and copies) per step, and device time per step by
+kernel name.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from torch.autograd import DeviceType
 
 from repro_torch.launch import serve
+from repro_torch.serve.kv_cache import PagedCache
 
 
 def main(argv=None) -> dict:
@@ -43,11 +47,26 @@ def main(argv=None) -> dict:
     logits, cache = model.prefill(params, {"tokens": torch.from_numpy(prompts)},
                                   max_len=args.max_len)
     tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    store = None
+    if args.paged:
+        store = PagedCache(model, args.max_batch, args.max_len,
+                           args.page_size, num_pages=args.num_pages)
+        for slot in range(args.max_batch):
+            if not store.reserve(slot, args.prompt_len):
+                raise SystemExit("--num-pages too small for the prompts")
+            store.splice(slot, cache, slot, args.prompt_len)
+        cache = store.cache
+    seq_len = args.prompt_len
 
     def steps(n: int) -> float:
-        nonlocal tok, cache
+        nonlocal tok, cache, seq_len
         t0 = time.perf_counter()
         for _ in range(n):
+            if store is not None:
+                for slot in range(args.max_batch):
+                    if not store.ensure_append(slot, seq_len):
+                        raise SystemExit("--num-pages too small")
+            seq_len += 1
             lg, cache = model.decode_step(params, tok, cache)
             tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True).to(torch.int32)
             tok.tolist()
@@ -66,8 +85,9 @@ def main(argv=None) -> dict:
     n = args.steps
     busy_ms = sum(us for _, us in by_name.values()) / n / 1e3
     launches = sum(c for c, _ in by_name.values()) / n
+    layout = f"paged (pages of {args.page_size})" if args.paged else "linear"
     print(f"[profile] {cfg.name} x{cfg.num_layers} {qcfg.tag()} batch "
-          f"{args.max_batch}, prompt {args.prompt_len}, on "
+          f"{args.max_batch}, prompt {args.prompt_len}, {layout} cache, on "
           f"{torch.cuda.get_device_name(0)}")
     print(f"[profile] decode step wall {wall * 1e3:.3f} ms (host clock, no "
           f"profiler); under the profiler {wall_prof * 1e3:.3f} ms")

@@ -8,9 +8,12 @@ Weights come from a seeded random init, quantized layer by layer onto the
 RTN grid (so only one layer's float weights exist at a time), packed into
 QTensors and served by ``QuantizedModel`` through the ``Engine``.  Prints
 generated tokens per second (prefill included), the first step's time
-(admission, prefill and one decode), the median decode step, weight bytes
-and KV-cache bytes.  ``--layers`` cuts depth; widths stay the
-architecture's.  ``--device`` defaults to
+(admission, prefill and one decode), the median decode step, weight bytes,
+KV-cache bytes and the number of preemptions.  ``--layers`` cuts depth;
+widths stay the architecture's.  ``--kvbits`` takes 4, 8 or 16;
+``--paged`` serves from a page pool (``--page-size``, ``--num-pages``,
+0 = as many pages as the linear cache holds) and ``--prefill-chunk N``
+admits prompts in chunks of N tokens.  ``--device`` defaults to
 ``cuda`` and raises when no CUDA device exists; ``--device cpu`` runs the
 plain versions of the kernels.
 """
@@ -20,6 +23,7 @@ import argparse
 import dataclasses
 import statistics
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,19 +55,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wbits", type=int, default=4)
     ap.add_argument("--group", type=int, default=128)
     ap.add_argument("--abits", type=int, default=4)
-    ap.add_argument("--kvbits", type=int, default=8)
+    ap.add_argument("--kvbits", type=int, default=8,
+                    help="4 (int4 + bf16 block-32 scales), 8 or 16")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--paged", action="store_true",
+                    help="page-pool KV cache with admission control and "
+                         "preemption")
+    ap.add_argument("--page-size", type=int, default=64)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="pool pages (0 = max_batch * ceil(max_len / "
+                         "page_size))")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="> 0: chunked admission, one chunk per step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap
 
 
-def build_model(args: argparse.Namespace):
-    """(cfg, qcfg, packed params, QuantizedModel) from the parsed flags."""
+def build_model(args: argparse.Namespace, params: Optional[dict] = None):
+    """(cfg, qcfg, packed params, QuantizedModel) from the parsed flags;
+    ``params`` reuses a packed tree built for the same arch, depth, weight
+    bits, group and seed (the KV format and activation bits may differ)."""
     device = resolve_device(args.device)
     # float32 matmuls left to PyTorch (vocab head, activation transforms)
     # stay full float32: no TF32
@@ -74,17 +90,19 @@ def build_model(args: argparse.Namespace):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     qcfg = QuantConfig(w_bits=args.wbits, a_bits=args.abits,
                        group_size=args.group, kv_bits=args.kvbits)
-    params = random_packed_lm(cfg, qcfg, args.seed, device)
+    if params is None:
+        params = random_packed_lm(cfg, qcfg, args.seed, device)
     return cfg, qcfg, params, QuantizedModel(cfg, qcfg, device=device)
 
 
-def serve(args: argparse.Namespace) -> dict:
+def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     """Build, run and time one serving session; returns the engine, its
-    requests and the measurements."""
-    cfg, qcfg, params, model = build_model(args)
+    requests and the measurements.  ``params``: as in :func:`build_model`."""
+    cfg, qcfg, params, model = build_model(args, params)
     engine = Engine(model, params, ServeConfig(
         max_batch=args.max_batch, max_len=args.max_len,
-        max_new=args.max_new))
+        max_new=args.max_new, paged=args.paged, page_size=args.page_size,
+        num_pages=args.num_pages, prefill_chunk=args.prefill_chunk))
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
                for _ in range(args.requests)]
@@ -105,7 +123,7 @@ def serve(args: argparse.Namespace) -> dict:
             "engine": engine, "requests": reqs, "prompts": prompts,
             "seconds": seconds, "generated": generated,
             "tokens_per_s": generated / seconds, "step_seconds": step_s,
-            **engine.memory_report()}
+            "preemptions": engine.preemptions, **engine.memory_report()}
 
 
 def main(argv=None) -> dict:
@@ -121,7 +139,7 @@ def main(argv=None) -> dict:
           f"{statistics.median(steps[1:] or steps) * 1e3:.2f} ms over "
           f"{len(steps) - 1} steps")
     print(f"[serve] weight bytes {out['weight_bytes']}, KV bytes "
-          f"{out['kv_bytes']}")
+          f"{out['kv_bytes']}, preemptions {out['preemptions']}")
     return out
 
 

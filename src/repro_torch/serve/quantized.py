@@ -4,16 +4,21 @@ Every linear of the trunk is a :class:`QTensor`.  At ``a_bits < 16`` each
 matmul goes through ``ops.quant_matmul`` (per-token dynamic activation
 codes, the ``w4a8_matmul`` kernel); at a16 through ``ops.dequant_matmul``.
 At ``kv_bits == 8`` K/V enter the cache as int8 codes with a float32 scale
-per (token, head), and attention reads the cache as stored through
-``ops.flash_prefill`` / ``ops.flash_decode``; at ``kv_bits >= 16`` the
-cache is float.  Full-matrix transform sites keep their activation factor
+per (token, head); at ``kv_bits == 4`` as packed int4 nibbles with a bf16
+scale per 32 values; at ``kv_bits >= 16`` the cache is float.  Attention
+reads the cache as stored through ``ops.flash_prefill`` /
+``ops.flash_decode``.  The cache is linear (a dict, ``init_cache``) or
+paged (a :class:`PagedKVCache`, ``init_paged_cache``); ``prefill_chunk``
+and ``decode_step`` take either, whole-prompt ``prefill`` fills a linear
+one.  Full-matrix transform sites keep their activation factor
 (``attn_t`` / ``mlp_t`` = {"a_inv", optional "shift"}) and merged biases
 (``bq``/``bk``/``bv``, ``b_gate``/``b_up``) are honoured, as calibrated
 trees carry them.
 
-Cache capacity: a write past ``max_len`` is dropped (slot ``max_len - 1``
-keeps its token) and ``len`` saturates at ``max_len``.  Quantization
-conserves poison: a non-finite K/V row gives a NaN scale.
+Cache capacity: a write past ``max_len`` (or into an unallocated page) is
+dropped (slot ``max_len - 1`` keeps its token) and ``len`` saturates at
+capacity.  Quantization conserves poison: a non-finite K/V row (kv4: block)
+gives a NaN scale.
 
 The port updates the cache in place: ``prefill_chunk`` and ``decode_step``
 write into the cache they are given and return it.
@@ -31,8 +36,11 @@ from repro_torch.core.qtensor import QTensor
 from repro_torch.core.quantizer import QuantConfig, quantize_codes
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_matmul import KERNEL_BITS
+from repro_torch.kernels.quantize_pack import (KV_BLOCK, kv4_check_head_dim,
+                                               kv4_quantize)
 from repro_torch.models import layers
-from repro_torch.serve.kv_cache import chunk_write_index
+from repro_torch.serve import kv_cache
+from repro_torch.serve.kv_cache import PagedKVCache, chunk_write_index
 
 PACKED_WEIGHTS = ("wq", "wk", "wv", "wo")
 PACKED_MLP = ("w_gate", "w_up", "w_down")
@@ -84,12 +92,13 @@ def _act_transform(t: Optional[dict], h: torch.Tensor) -> torch.Tensor:
 
 
 def _kv_quantize(x: torch.Tensor, kv_bits: int):
-    """Symmetric per-(token, head) codes: x (..., H, D) -> (int8 codes
-    (..., H, D), float32 scale (..., H)).  ``amax`` propagates NaN, so a
-    poisoned row keeps a NaN scale."""
-    if kv_bits != 8:
-        raise NotImplementedError(f"kv_bits={kv_bits}: the port has the kv8 "
-                                  f"cache only (kv4 is not ported yet)")
+    """Quantize-on-write.  kv8: symmetric per-(token, head) codes, x
+    (..., H, D) -> (int8 codes (..., H, D), float32 scale (..., H)).  kv4:
+    :func:`kv4_quantize`, x -> (nibbles (..., H, D // 2), bf16 scales
+    (..., H, D // 32)).  ``amax`` propagates NaN, so a poisoned row keeps a
+    NaN scale."""
+    if kv_bits == 4:
+        return kv4_quantize(x)
     xf = x.to(torch.float32)
     qmax = 2.0 ** (kv_bits - 1) - 1.0
     bound = torch.clamp_min(torch.amax(xf.abs(), dim=-1), 1e-8)
@@ -107,13 +116,17 @@ def _layer(tree, i: int):
 
 @dataclasses.dataclass(frozen=True)
 class QuantizedModel:
-    """Serves a packed tree: ``init_cache`` / ``prefill`` / ``prefill_chunk``
-    / ``decode_step``.  ``mode="auto"`` runs the CUDA kernels on CUDA
-    tensors, ``"plain"`` the plain versions."""
+    """Serves a packed tree: ``init_cache`` / ``init_paged_cache`` /
+    ``prefill`` / ``prefill_chunk`` / ``decode_step``.  ``mode="auto"`` runs
+    the CUDA kernels on CUDA tensors, ``"plain"`` the plain versions.
+    ``block_kv`` sets the plain versions' tile over the linear cache (the
+    paged ones take one page per tile), as the reference's
+    ``flash_block_kv`` does."""
     cfg: ModelConfig
     qcfg: QuantConfig
     mode: str = "auto"
     device: str = "cuda"
+    block_kv: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
@@ -126,12 +139,16 @@ class QuantizedModel:
                            "positions)")
         if qcfg.w_bits not in KERNEL_BITS:
             missing.append(f"{qcfg.w_bits}-bit weights")
-        if qcfg.kv_bits < 16 and qcfg.kv_bits != 8:
-            missing.append(f"the kv{qcfg.kv_bits} cache")
         if missing:
             raise NotImplementedError("not ported yet: " + ", ".join(missing))
         if qcfg.a_bits < 16 and not 2 <= qcfg.a_bits <= 8:
             raise ValueError(f"a_bits={qcfg.a_bits}: use 2..8 or >= 16")
+        if qcfg.kv_bits < 16 and qcfg.kv_bits not in (4, 8):
+            raise ValueError(f"kv_bits={qcfg.kv_bits}: use 4 (packed int4 + "
+                             f"block-32 bf16 scales), 8 (int8 + per-(token, "
+                             f"head) float32 scales) or >= 16 (float)")
+        if qcfg.kv_bits == 4:
+            kv4_check_head_dim(cfg.resolved_head_dim)
 
     @property
     def kv_quantized(self) -> bool:
@@ -143,28 +160,47 @@ class QuantizedModel:
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg, dev = self.cfg, self.device
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+        d = cfg.resolved_head_dim
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, d)
         if not self.kv_quantized:
             dt = getattr(torch, cfg.dtype)
             cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
                      "v": torch.zeros(shape, dtype=dt, device=dev)}
         else:
+            sshape, sdt = shape[:-1], torch.float32
+            if self.qcfg.kv_bits == 4:
+                shape = shape[:-1] + (d // 2,)
+                sshape, sdt = shape[:-1] + (d // KV_BLOCK,), torch.bfloat16
             cache = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                      "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                     "k_scale": torch.zeros(shape[:-1], device=dev),
-                     "v_scale": torch.zeros(shape[:-1], device=dev)}
+                     "k_scale": torch.zeros(sshape, dtype=sdt, device=dev),
+                     "v_scale": torch.zeros(sshape, dtype=sdt, device=dev)}
         cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
         return cache
 
-    def _kv_entries(self, cache: dict, i: int) -> tuple:
+    def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                         max_pages_per_seq: int) -> PagedKVCache:
+        """Page pools in the linear cache's per-token layout."""
+        cfg = self.cfg
+        return kv_cache.make_paged_cache(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, batch=batch,
+            num_pages=num_pages, page_size=page_size,
+            max_pages_per_seq=max_pages_per_seq,
+            dtype=getattr(torch, cfg.dtype),
+            kv_bits=min(self.qcfg.kv_bits, 16), device=self.device)
+
+    def _kv_entries(self, cache, i: int) -> tuple:
+        """Layer ``i``'s cache entries (linear dict or paged pools)."""
         keys = ("k", "v", "k_scale", "v_scale") if self.kv_quantized \
             else ("k", "v")
+        if isinstance(cache, PagedKVCache):
+            return tuple(getattr(cache, k)[i] for k in keys)
         return tuple(cache[k][i] for k in keys)
 
     def _kv_values(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
         """What enters the cache, in ``_kv_entries`` order: codes and
-        scales (quantize-on-write) at kv8, the values at kv16."""
+        scales (quantize-on-write) at kv8 / kv4, the values at kv16."""
         if not self.kv_quantized:
             return k, v
         (kq, k_s), (vq, v_s) = (_kv_quantize(t, self.qcfg.kv_bits)
@@ -197,13 +233,14 @@ class QuantizedModel:
         x = x[torch.arange(bsz, device=self.device), lengths.long() - 1]
         return self._head(params, x[:, None]), cache
 
-    def prefill_chunk(self, params: dict, batch: dict, cache: dict, offset,
+    def prefill_chunk(self, params: dict, batch: dict, cache, offset,
                       *, last_only: bool = False):
-        """One C-token chunk written into (and attending) ``cache`` at
-        ``offset`` (B,).  ``batch["chunk_len"]`` (B,) counts valid rows
-        (0 for idle rows).  Returns (logits (B, C, vocab) — or (B, 1, vocab)
-        at the last valid row when ``last_only`` — , cache) with ``len``
-        advanced to ``offset + chunk_len`` (saturating)."""
+        """One C-token chunk written into (and attending) ``cache`` (linear
+        or paged) at ``offset`` (B,).  ``batch["chunk_len"]`` (B,) counts
+        valid rows (0 for idle rows).  Returns (logits (B, C, vocab) — or
+        (B, 1, vocab) at the last valid row when ``last_only`` — , cache)
+        with ``len`` (``lens`` when paged) advanced to ``offset +
+        chunk_len`` (saturating)."""
         tokens = torch.as_tensor(batch["tokens"]).to(self.device)
         bsz, c = tokens.shape
         chunk_len = self._ints(batch.get("chunk_len"), c, bsz)
@@ -218,15 +255,27 @@ class QuantizedModel:
         """Embed -> blocks (cache write + as-stored attention); returns the
         pre-norm hidden states (B, C, d) and updates ``cache`` in place."""
         bsz, c = tokens.shape
-        s = cache["k"].shape[2]
         x = params["embed"][tokens.long()]
         pos = offset[:, None] + torch.arange(c, device=self.device)[None, :]
-        write = chunk_write_index(offset, chunk_len, c, s)
+        page_table = None
+        if isinstance(cache, PagedKVCache):
+            page_table, cap = cache.page_table, cache.capacity
+            rows = cache.num_pages * cache.page_size
+            write = kv_cache.paged_chunk_write_index(kv_cache.chunk_write_dest(
+                page_table, offset, chunk_len, c, cache.page_size,
+                cache.num_pages), rows)
+        else:
+            cap = cache["k"].shape[2]
+            write = chunk_write_index(offset, chunk_len, c, cap)
         for i in range(self.cfg.num_layers):
             x = self._block_prefill_chunk(
                 _layer(params["layers"], i), x, self._kv_entries(cache, i),
-                pos, offset, chunk_len, write)
-        cache["len"] = torch.clamp_max(offset + chunk_len, s).to(torch.int32)
+                pos, offset, chunk_len, write, page_table)
+        lens = torch.clamp_max(offset + chunk_len, cap).to(torch.int32)
+        if page_table is None:
+            cache["len"] = lens
+        else:
+            cache.lens = lens
         return x
 
     def _qkv(self, p, x, pos):
@@ -245,23 +294,31 @@ class QuantizedModel:
                               cfg.rope_theta)
         return q, k, v.reshape(b, t, cfg.num_kv_heads, hd)
 
-    def _block_prefill_chunk(self, p, x, kv, pos, offset, chunk_len, write):
+    def _block_prefill_chunk(self, p, x, kv, pos, offset, chunk_len, write,
+                             page_table=None):
         b, c = x.shape[0], x.shape[1]
         q, k, v = self._qkv(p, x, pos)
         b_idx, c_idx, dest = write
         for ct, val in zip(kv, self._kv_values(k, v)):
-            ct[b_idx, dest] = val[b_idx, c_idx].to(ct.dtype)
-        out = ops.flash_prefill(q, kv, offset, chunk_len, mode=self.mode)
+            if page_table is None:
+                ct[b_idx, dest] = val[b_idx, c_idx].to(ct.dtype)
+            else:
+                kv_cache.paged_chunk_write(ct, val, write)
+        out = ops.flash_prefill(q, kv, offset, chunk_len,
+                                block_kv=self.block_kv,
+                                page_table=page_table, mode=self.mode)
         x = x + self._mm(out.reshape(b, c, -1), p["wo"])
         return x + self._mlp(p, x)
 
     # ---- decode --------------------------------------------------------
-    def decode_step(self, params: dict, token, cache: dict):
+    def decode_step(self, params: dict, token, cache):
         """token (B, 1) -> (logits (B, 1, vocab), cache), writing each
-        row's K/V at position ``len`` (dropped when the row is full) and
-        advancing ``len`` (saturating at capacity)."""
+        row's K/V at position ``len`` (dropped when the row is full, or its
+        page unallocated) and advancing ``len`` (saturating at capacity)."""
         token = torch.as_tensor(token).to(self.device)
         x = params["embed"][token.long()]
+        if isinstance(cache, PagedKVCache):
+            return self._decode_step_paged(params, x, cache)
         cur_len = cache["len"]
         s = cache["k"].shape[2]
         for i in range(self.cfg.num_layers):
@@ -285,7 +342,33 @@ class QuantizedModel:
             mask = keep.reshape(-1, *([1] * (old.ndim - 1)))
             ct[rows, idx] = torch.where(mask, old, val.to(ct.dtype))
         out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, s),
-                               mode=self.mode)
+                               block_kv=self.block_kv, mode=self.mode)
+        x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
+        return x + self._mlp(p, x)
+
+    def _decode_step_paged(self, params: dict, x, cache: PagedKVCache):
+        """The decode step over page pools: the token's K/V land in the
+        sequence's current page through the page table, attention walks only
+        the allocated pages.  Same math as the linear step."""
+        cur_len, cap = cache.lens, cache.capacity
+        rows = cache.num_pages * cache.page_size
+        write = kv_cache.token_write_index(kv_cache.token_write_dest(
+            cache.page_table, cur_len, cache.page_size, cache.num_pages), rows)
+        for i in range(self.cfg.num_layers):
+            x = self._block_decode_paged(_layer(params["layers"], i), x,
+                                         self._kv_entries(cache, i), cur_len,
+                                         cache.page_table, write, cap)
+        logits = self._head(params, x)
+        cache.lens = torch.clamp_max(cur_len + 1, cap).to(torch.int32)
+        return logits, cache
+
+    def _block_decode_paged(self, p, x, kv, cur_len, page_table, write, cap):
+        b = x.shape[0]
+        q, k, v = self._qkv(p, x, cur_len[:, None])
+        for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
+            kv_cache.paged_token_write(ct, val, write)
+        out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, cap),
+                               page_table=page_table, mode=self.mode)
         x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
         return x + self._mlp(p, x)
 

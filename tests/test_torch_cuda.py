@@ -2,8 +2,10 @@
 
 Every test here needs a CUDA device and skips without one.  Shapes are
 small and ragged on purpose (M not a tile multiple, N not a multiple of
-64, K tails, G = 5 query heads per KV head, D = 32 and 128) — the
-full-width shapes run in ``chip_smoke.py``.
+64, K tails, G = 5 query heads per KV head, D = 32 and 128, pages of 8,
+16 and 64 so a 32-position tile spans pages or a page spans tiles) — the
+full-width shapes run in ``chip_smoke.py``.  A paged kernel must equal its
+linear kernel bit for bit on the same contents.
 
 Tolerances: w4a8_matmul has an exact integer dot and the plain version's
 float32 epilogue, so it must agree to 1e-6 of the output's magnitude
@@ -18,10 +20,16 @@ from repro_torch.core.packing import pack
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_matmul import (dequant_matmul,
                                                 dequant_matmul_plain)
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_paged,
+                                              flash_decode_paged_plain,
+                                              flash_decode_plain)
 from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_paged,
+                                               flash_prefill_paged_plain,
                                                flash_prefill_plain)
 from repro_torch.kernels.int8_matmul import quant_matmul_plain, w4a8_matmul
+from repro_torch.kernels.quantize_pack import kv4_quantize
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +178,148 @@ def test_quantized_model_kernels_match_plain(dev, abits, kvbits, tol):
             seq.append(lg)
         out[mode] = torch.cat(seq, 1)
     assert _err(out["auto"], out["plain"]) < tol
+
+
+# ---- kv4 and the paged kernels ------------------------------------------
+
+def _entries(rng, lead, hkv, d, kv_bits, dev):
+    """(k, v, k_scale, v_scale) cache rows ``lead`` on the card: float32,
+    random int8 codes with float32 scales, or kv4-quantized values."""
+    f = lambda: torch.from_numpy(
+        rng.standard_normal(lead + (hkv, d)).astype(np.float32))
+    if kv_bits == 16:
+        return f().to(dev), f().to(dev), None, None
+    if kv_bits == 8:
+        return tuple(t.to(dev) for t in _cache(rng, lead[0], lead[1], hkv, d,
+                                                True, "cpu"))
+    (k, ks), (v, vs) = kv4_quantize(f()), kv4_quantize(f())
+    return k.to(dev), v.to(dev), ks.to(dev), vs.to(dev)
+
+
+def _paged_case(rng, lens, hkv, d, ps, kv_bits, max_pages, dev):
+    """Pools with spare pages and a shuffled page table (-1 past each
+    row's pages), plus the linear cache the table spells out."""
+    need = [-(-n // ps) for n in lens]
+    num_pages = sum(need) + 2
+    perm = rng.permutation(num_pages)
+    pt = np.full((len(lens), max_pages), -1, np.int32)
+    used = 0
+    for b, n in enumerate(need):
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    pools = _entries(rng, (num_pages, ps), hkv, d, kv_bits, dev)
+    pt = torch.from_numpy(pt).to(dev)
+    idx = pt.long().clamp_min(0)
+    lin = tuple(None if e is None else
+                e[idx].reshape(len(lens), -1, *e.shape[2:]).contiguous()
+                for e in pools)
+    return pools, pt, lin
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_decode_paged_kernel(dev, kv_bits, ps, g):
+    """Ragged lengths (0, 1, a page boundary, a mid-page tail) over a
+    shuffled table: within 1e-5 of the paged plain version and equal bit
+    for bit to the linear kernel on the same contents."""
+    rng = np.random.default_rng(kv_bits + ps + g)
+    hkv, d = 2, 64
+    lens = [0, 1, ps, 2 * ps + 7]
+    pools, pt, lin = _paged_case(rng, lens, hkv, d, ps, kv_bits, 4, dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_decode_paged(q, pools[0], pools[1], pt, cur, *pools[2:])
+    want = flash_decode_paged_plain(q, pools[0], pools[1], pt, cur,
+                                    *pools[2:])
+    assert _err(got, want) < 1e-5
+    assert not got[0].any()
+    assert torch.equal(got, flash_decode(q, lin[0], lin[1], cur, *lin[2:]))
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_prefill_paged_kernel(dev, kv_bits, ps, g):
+    rng = np.random.default_rng(10 + kv_bits + ps + g)
+    hkv, d, c = 2, 64, 20
+    offs, cls = [0, ps - 3, 2 * ps, 5], [20, 9, 0, 1]
+    pools, pt, lin = _paged_case(rng, [o + n for o, n in zip(offs, cls)],
+                                 hkv, d, ps, kv_bits, 5, dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, c, g, d)).astype(
+        np.float32)).to(dev)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cls, dtype=torch.int32, device=dev)
+    got = flash_prefill_paged(q, pools[0], pools[1], pt, off, cl, *pools[2:])
+    want = flash_prefill_paged_plain(q, pools[0], pools[1], pt, off, cl,
+                                     *pools[2:])
+    assert _err(got, want) < 1e-5
+    assert not got[2].any()
+    assert torch.equal(got, flash_prefill(q, lin[0], lin[1], off, cl,
+                                          *lin[2:]))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_kv4_linear_kernels(dev, g):
+    rng = np.random.default_rng(20 + g)
+    b, s, hkv, d, c = 3, 96, 2, 128, 12
+    kv = _entries(rng, (b, s), hkv, d, 4, dev)
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor([0, 33, 96], dtype=torch.int32, device=dev)
+    got = flash_decode(q, kv[0], kv[1], cur, *kv[2:])
+    want = flash_decode_plain(q, kv[0], kv[1], cur, *kv[2:], block_kv=32)
+    assert _err(got, want) < 1e-5
+    q5 = torch.from_numpy(rng.standard_normal((b, hkv, c, g, d)).astype(
+        np.float32)).to(dev)
+    off = torch.tensor([0, 40, 84], dtype=torch.int32, device=dev)
+    cl = torch.tensor([12, 0, 7], dtype=torch.int32, device=dev)
+    got = flash_prefill(q5, kv[0], kv[1], off, cl, *kv[2:])
+    want = flash_prefill_plain(q5, kv[0], kv[1], off, cl, *kv[2:],
+                               block_kv=32)
+    assert _err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_one_token_paged_prefill_equals_paged_decode(dev, kv_bits):
+    rng = np.random.default_rng(30 + kv_bits)
+    hkv, g, d, ps = 2, 4, 64, 16
+    lens = [1, 16, 17, 40]
+    pools, pt, _ = _paged_case(rng, lens, hkv, d, ps, kv_bits, 3, dev)
+    q = torch.from_numpy(rng.standard_normal((4, 1, hkv * g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    dec = ops.flash_decode(q, pools, cur, page_table=pt)
+    pre = ops.flash_prefill(q, pools, cur - 1, torch.ones_like(cur),
+                            page_table=pt)
+    assert torch.equal(dec, pre)
+
+
+@pytest.mark.parametrize("kvbits", [8, 4])
+def test_paged_engine_kernels_match_plain(dev, kvbits):
+    """The paged engine with chunked admission and a pool small enough to
+    preempt, through the kernels: every request completes, and the
+    kernels' greedy streams equal the plain versions' on this short
+    a16 trace."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch.serve import random_packed_lm
+    from repro_torch.serve.engine import Engine, RequestStatus, ServeConfig
+    from repro_torch.serve.quantized import QuantizedModel
+    cfg = get_config("llama-micro")
+    qcfg = QuantConfig(w_bits=4, a_bits=16, group_size=32, kv_bits=kvbits)
+    params = random_packed_lm(cfg, qcfg, 0, dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (10, 30, 7)]
+    streams = {}
+    for mode in ("auto", "plain"):
+        eng = Engine(QuantizedModel(cfg, qcfg, mode=mode, device=dev), params,
+                     ServeConfig(max_batch=2, max_len=64, max_new=10,
+                                 paged=True, page_size=8, num_pages=6,
+                                 prefill_chunk=4))
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run(max_steps=500)
+        assert all(r.status is RequestStatus.COMPLETED for r in reqs)
+        streams[mode] = [r.out_tokens for r in reqs]
+    assert streams["auto"] == streams["plain"]

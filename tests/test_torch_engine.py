@@ -105,7 +105,7 @@ def test_submit_rejects_unservable_prompts(packed):
 
 
 @pytest.mark.parametrize("over", [dict(temperature=0.7),
-                                  dict(prefill_chunk=8), dict(paged=True)])
+                                  dict(prefix_cache=True)])
 def test_unported_engine_options_raise(packed, over):
     with pytest.raises(NotImplementedError):
         _port_engine(packed, **over)

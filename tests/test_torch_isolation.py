@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.dequant_matmul import dequant_matmul
-from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_paged)
 from repro_torch.kernels.int8_matmul import w4a8_matmul
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -53,7 +54,16 @@ def _meta(*shape, dtype=torch.float32):
     lambda: flash_prefill(_meta(1, 2, 4, 1, 32), _meta(1, 16, 2, 32),
                           _meta(1, 16, 2, 32), _meta(1, dtype=torch.int32),
                           _meta(1, dtype=torch.int32)),
-], ids=["dequant_matmul", "w4a8_matmul", "flash_decode", "flash_prefill"])
+    lambda: flash_decode_paged(_meta(1, 2, 1, 32), _meta(3, 8, 2, 32),
+                               _meta(3, 8, 2, 32), _meta(1, 2, dtype=torch.int32),
+                               _meta(1, dtype=torch.int32)),
+    lambda: flash_prefill_paged(_meta(1, 2, 4, 1, 32), _meta(3, 8, 2, 32),
+                                _meta(3, 8, 2, 32),
+                                _meta(1, 2, dtype=torch.int32),
+                                _meta(1, dtype=torch.int32),
+                                _meta(1, dtype=torch.int32)),
+], ids=["dequant_matmul", "w4a8_matmul", "flash_decode", "flash_prefill",
+        "flash_decode_paged", "flash_prefill_paged"])
 def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch(call):
     """A wrapper runs its plain version only for CPU tensors."""
     with pytest.raises(ValueError, match="no kernel for device"):

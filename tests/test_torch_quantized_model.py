@@ -177,7 +177,7 @@ def test_kv_quantize_conserves_nan():
 
 def test_unported_features_raise(setup):
     tcfg = setup[1]
-    for q in (QuantConfig(w_bits=3), QuantConfig(kv_bits=4)):
+    for q in (QuantConfig(w_bits=3),):
         with pytest.raises(NotImplementedError):
             QuantizedModel(tcfg, q, device="cpu")
     with pytest.raises(NotImplementedError):
