@@ -17,6 +17,9 @@ failure raises (exit code != 0).
    before every launch, since the serving path finds each weight cold.
    Each paged kernel must equal its linear kernel bit for bit on the same
    contents, and a one-token chunk must equal decode, in every format.
+   int8_matmul and w8a8_matmul at the four llama-7b linear shapes, and
+   quantize_pack at the llama-7b weight shapes (w4 g128 both ways, w2, w8
+   and per-channel w4), must equal their plain versions bit for bit.
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -31,8 +34,22 @@ failure raises (exit code != 0).
    and pass the per-block teacher-forced check over pages.
 6. serve the same model at kv4 (4 requests x (128 + 8), paged, chunks of
    64), gated by the same per-block check.
+7. repack: the reference's entry points of the three kernels no serving
+   path runs (``ops.quantize_pack``, ``ops.w8a8_matmul``,
+   ``int8_matmul.int8_matmul``; no serving path of the reference runs
+   them either), at full width over every layer of the served tree.  Each
+   layer's float block is drawn again on the card from the generator
+   sequence that built phase 3's tree, and ``ops.quantize_pack`` (w4 g128)
+   of each of its seven linears must equal the QTensor phase 3 served,
+   packed bytes, scales and zero points (224 launches); ``wq`` and ``w_up``
+   as symmetric per-channel int8 codes go through ``ops.w8a8_matmul`` and
+   ``int8_matmul`` at M = 4 and 512 on phase 3's prompt embeddings, bit for
+   bit against the plain version.
+8. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (phases 3-6 for the six serving kernels, phase
+   7 for the other three), never of the comparisons of phase 2.
 
-Phases 3, 5 and 6 share one packed llama-7b tree.
+Phases 3, 5, 6 and 7 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -58,7 +75,12 @@ KERNELS = {"w4a8_matmul": "w4a8_matmul.cu",        # name -> source file
            "dequant_matmul": "dequant_matmul.cu",
            "flash_decode": "flash_decode.cu", "flash_prefill": "flash_prefill.cu",
            "flash_decode_paged": "flash_decode.cu",
-           "flash_prefill_paged": "flash_prefill.cu"}
+           "flash_prefill_paged": "flash_prefill.cu",
+           "int8_matmul": "int8_matmul.cu", "w8a8_matmul": "int8_matmul.cu",
+           "quantize_pack": "quantize_pack.cu"}
+# (M, K, N) of llama-7b's linears: decode (M 4) and a 512-token prefill
+LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
+                 (512, 4096, 11008))
 
 
 def log(msg: str) -> None:
@@ -129,6 +151,8 @@ def main() -> None:
     timer = Timer(torch)
     check_kernels(torch, timer, results)
     check_paged_kernels(torch, timer, results)
+    check_int8_kernels(torch, timer, results)
+    check_quantize_pack(torch, timer, results)
     del timer
     torch.cuda.empty_cache()
 
@@ -139,12 +163,12 @@ def main() -> None:
         SERVE_ARGS + ["--layers", str(LAYERS)]))[2]
     log(f"[serve] random init + RTN packing of the llama-7b tree "
         f"{time.perf_counter() - t0:.1f} s")
-    counts, streams = serve_w4a4(torch, params)
+    counts, streams, prompts = serve_w4a4(torch, params)
     phases = [serve_a16(torch), serve_paged(torch, params, streams),
-              serve_kv4(torch, params)]
+              serve_kv4(torch, params), repack(torch, params, prompts)]
     del params
 
-    # ---- 7. summary --------------------------------------------------------
+    # ---- 8. summary --------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -152,8 +176,7 @@ def main() -> None:
     for name in KERNELS:
         r = results[name]
         if counts[name] <= 0:
-            raise RuntimeError(f"{name} was never launched on the serving "
-                               f"path")
+            raise RuntimeError(f"{name} was never launched on the main path")
         kernels.append({"name": name, "route": "cuda",
                          "source": f"src/repro_torch/csrc/{KERNELS[name]}",
                          "replaces": r["replaces"], "launches": counts[name],
@@ -182,9 +205,10 @@ def main() -> None:
 
 def _record(results, name, case, err, tol, ms, plain_ms, lib_ms, bms, by,
             replaces, main_case):
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(f"[kernel] {name} {case}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+        f"bound {bms:.4f} ms ({by})")
     if not err <= tol:
         raise RuntimeError(f"{name} {case}: error {err} above tolerance {tol}")
     if main_case:
@@ -240,8 +264,7 @@ def check_kernels(torch, timer, results) -> None:
 
     # ---- the two matmuls: every linear shape of llama-7b, decode + prefill
     g, bits = 128, 4
-    for m, k, n in ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
-                    (512, 4096, 11008)):
+    for m, k, n in LINEAR_SHAPES:
         x = randn(m, k)
         codes = torch.randint(0, 16, (k, n), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -567,6 +590,95 @@ def check_paged_kernels(torch, timer, results) -> None:
         "(bit-equal, kv16/kv8/kv4)")
 
 
+def _require_equal(torch, name, case, got, want) -> None:
+    """Raise unless a kernel's result equals its plain version's bit for
+    bit."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{name} {case}: differs from its plain version")
+
+
+def check_int8_kernels(torch, timer, results) -> None:
+    """int8_matmul and w8a8_matmul at llama-7b's linear shapes on seeded
+    int8 codes and positive per-channel scales, each bit-equal to its
+    plain version.  Library yardstick: torch.matmul on the float32
+    operands with the scales folded in (and torch._int_mm at M = 512,
+    logged)."""
+    from repro_torch.kernels import int8_matmul as i8
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+    for m, k, n in LINEAR_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        x_q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                            dtype=torch.int8)
+        x_scale = torch.rand((m, 1), generator=gen, device=dev) * 0.05 + 0.01
+        w_q = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8)
+        w_scale = torch.rand((n,), generator=gen, device=dev) * 0.05 + 0.01
+        w_f = w_q.to(torch.float32) * w_scale
+        x_f = x_q.to(torch.float32) * x_scale
+        case = f"M={m} K={k} N={n}"
+        main = (m, k, n) == (4, 4096, 11008)
+        n_ops = 2 * m * k * n
+
+        _require_equal(torch, "int8_matmul", case,
+                       i8.int8_matmul(x_q, x_scale, w_q, w_scale),
+                       i8.int8_matmul_plain(x_q, x_scale, w_q, w_scale))
+        bms, by = bound(m * k + 4 * m + k * n + 4 * n + 4 * m * n, n_ops,
+                        INT8_OPS_PER_S)
+        _record(results, "int8_matmul", case, 0.0, 0.0,
+                timer(lambda: i8.int8_matmul(x_q, x_scale, w_q, w_scale)),
+                timer(lambda: i8.int8_matmul_plain(x_q, x_scale, w_q,
+                                                   w_scale), reps=5),
+                timer(lambda: torch.matmul(x_f, w_f)), bms, by,
+                "src/repro/kernels/int8_matmul.py:58", main)
+        if m > 16:
+            log(f"[kernel] int8_matmul {case}: torch._int_mm (int32 "
+                f"product only) "
+                f"{timer(lambda: torch._int_mm(x_q, w_q)):.4f} ms")
+
+        _require_equal(torch, "w8a8_matmul", case,
+                       i8.w8a8_matmul(x, w_q, w_scale),
+                       i8.w8a8_dynamic_plain(x, w_q, w_scale))
+        bms, by = bound(4 * m * k + k * n + 4 * n + 4 * m * n, n_ops,
+                        INT8_OPS_PER_S)
+        _record(results, "w8a8_matmul", case, 0.0, 0.0,
+                timer(lambda: i8.w8a8_matmul(x, w_q, w_scale)),
+                timer(lambda: i8.w8a8_dynamic_plain(x, w_q, w_scale), reps=5),
+                timer(lambda: torch.matmul(x, w_f)), bms, by,
+                "src/repro/kernels/int8_matmul.py:111", main)
+        del x, x_q, x_scale, w_q, w_scale, w_f, x_f
+
+
+def check_quantize_pack(torch, timer, results) -> None:
+    """quantize_pack at llama-7b's weight shapes (w4 g128 both ways, then
+    w2, w8 and per-channel w4 on 4096 x 11008): packed bytes, scales and
+    zero points equal to the plain version's.  No single PyTorch call
+    computes it, so it has no library time.  Bound: 4 K N bytes read and
+    K N bits / 8 + 8 N K / g written, or 7 float32 operations an element
+    (max, min, quotient, round, add, two clamps)."""
+    from repro_torch.kernels import quantize_pack as qp
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for k, n, bits, g in ((4096, 11008, 4, 128), (11008, 4096, 4, 128),
+                          (4096, 11008, 2, 128), (4096, 11008, 8, 128),
+                          (4096, 11008, 4, 0)):
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+        case = f"K={k} N={n} w{bits} g{g}"
+        got = qp.quantize_pack(w, bits=bits, group_size=g)
+        want = qp.quantize_pack_plain(w, bits, g)
+        for a, b in zip(got, want):
+            _require_equal(torch, "quantize_pack", case, a, b)
+        gs = g or k
+        bms, by = bound(4 * k * n + k * n * bits // 8 + 8 * n * (k // gs),
+                        7 * k * n, FP32_OPS_PER_S)
+        _record(results, "quantize_pack", case, 0.0, 0.0,
+                timer(lambda: qp.quantize_pack(w, bits=bits, group_size=g)),
+                timer(lambda: qp.quantize_pack_plain(w, bits, g), reps=5),
+                None, bms, by, "src/repro/kernels/quantize_pack.py:115",
+                (k, n, bits, g) == (4096, 11008, 4, 128))
+        del w, got, want
+
+
 # ---------------------------------------------------------------------------
 # 3. serving llama-7b W4A4 kv8 at full width
 # ---------------------------------------------------------------------------
@@ -587,8 +699,9 @@ ROW_SHARE = 0.9
 A16_TOL = 1e-3
 
 
-def serve_w4a4(torch, params) -> tuple[dict, list]:
-    """Phase 3; returns the launch counts and the greedy streams."""
+def serve_w4a4(torch, params) -> tuple[dict, list, "torch.Tensor"]:
+    """Phase 3; returns the launch counts, the greedy streams and the
+    prompts (4, 128)."""
     import numpy as np
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
@@ -640,7 +753,7 @@ def serve_w4a4(torch, params) -> tuple[dict, list]:
     streams = [list(r.out_tokens) for r in reqs]
     del out, a, p
     torch.cuda.empty_cache()
-    return counts, streams
+    return counts, streams, prompts
 
 
 def gate_blockwise(torch, tag, out, prompts, gen, **paged) -> None:
@@ -919,6 +1032,80 @@ def serve_kv4(torch, params) -> dict:
                        dtype=torch.int32)
     gate_blockwise(torch, "kv4", out, prompts, gen, page_size=64, chunk=64)
     del out
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 7. the three kernels no serving path runs, over the served tree
+# ---------------------------------------------------------------------------
+
+def repack(torch, params, prompts) -> dict:
+    """Phase 7 (see the module docstring); returns its launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.launch import serve
+    from repro_torch.models.init import init_block, init_top
+    from repro_torch.serve.quantized import PACKED_MLP, PACKED_WEIGHTS
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    bits, group = args.wbits, args.group
+    cfg = get_config(args.arch)
+    dev = "cuda"
+    # launch/serve.py::random_packed_lm's draws, in its order
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    init_top(cfg, gen, dev)
+    x = params["embed"][prompts.to(dev).long()]            # (4, 128, d)
+    acts = (x[:, :1], x)                                   # M = 4 and 512
+    layers = params["layers"]
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    n_linear = n_matmul = 0
+    for i in range(LAYERS):
+        block = init_block(cfg, gen, dev)
+        linears = ([(k, block[k], layers[k]) for k in PACKED_WEIGHTS]
+                   + [(k, block["mlp"][k], layers["mlp"][k])
+                      for k in PACKED_MLP])
+        for name, w, served in linears:
+            got = ops.quantize_pack(w, bits=bits, group_size=group)
+            qt = served[i]
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, (qt.packed, qt.scale, qt.zp))):
+                raise RuntimeError(f"repack: layer {i} {name} differs from "
+                                   f"the served QTensor")
+            n_linear += 1
+        for name, w, _ in linears:
+            if name not in ("wq", "w_up"):
+                continue
+            amax = torch.amax(w.abs(), dim=0)
+            w_scale = amax / torch.full_like(amax, 127.0)
+            w_q = torch.clamp(torch.round(w / w_scale), -128, 127).to(
+                torch.int8)
+            for xa in acts:
+                x2 = xa.reshape(-1, xa.shape[-1])
+                want = i8.w8a8_dynamic_plain(x2, w_q, w_scale)
+                got = ops.w8a8_matmul(xa, w_q, w_scale)
+                x_q, x_scale = i8.act_quant_plain(x2, 8)
+                got8 = i8.int8_matmul(x_q.to(torch.int8), x_scale, w_q,
+                                      w_scale)
+                if not (torch.equal(got.reshape(want.shape), want)
+                        and torch.equal(got8, want)):
+                    raise RuntimeError(f"repack: w8a8 / int8 on layer {i} "
+                                       f"{name} at M={x2.shape[0]} differ "
+                                       f"from the plain version")
+                n_matmul += 1
+        del block, linears
+    torch.cuda.synchronize()
+    counts = dict(_lib.LAUNCHES)
+    log(f"[repack] {n_linear} linears of {LAYERS} layers repacked w{bits} "
+        f"g{group} by quantize_pack, equal to the served tree (packed, "
+        f"scale, zp); {n_matmul} w8a8_matmul + int8_matmul products on the "
+        f"prompts' embeddings bit-equal to the plain version; "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    for name in ("quantize_pack", "w8a8_matmul", "int8_matmul"):
+        if counts[name] <= 0:
+            raise RuntimeError(f"repack: {name} was never launched")
+    del x, acts
     torch.cuda.empty_cache()
     return counts
 

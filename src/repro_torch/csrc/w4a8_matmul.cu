@@ -10,7 +10,8 @@
 // uint8; scale/zp (K/g, N) float32; a_bits 2..8; y (M, N) float32.
 //
 // Two launches:
-//  1. act_quant: one block per row.  A NaN-propagating max |x| gives
+//  1. act_quant (common.cuh, shared with w8a8_matmul): one block per row.
+//     A NaN-propagating max |x| gives
 //     a_scale = max(bound, 1e-8) / qmax (IEEE division), the int8 codes
 //     clip(rint(x / a_scale)) (round half to even, as the plain version)
 //     go to a scratch (M, K) int8 buffer, and their per-group row sums to
@@ -41,55 +42,6 @@ namespace {
 
 constexpr int BM = 32, BN = 64, BK = 32, THREADS = 256, KW = BK / 4;
 constexpr int DEC_SMEM_MAX = 96 * 1024;      // decode path's group terms
-
-__global__ void __launch_bounds__(THREADS)
-act_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ xq,
-                 float* __restrict__ a_scale, int* __restrict__ rsum, int K,
-                 int group, float qmax) {
-  __shared__ float red[THREADS / 32];
-  __shared__ int red_nan[THREADS / 32];
-  __shared__ float s_scale;
-  const int m = blockIdx.x, tid = threadIdx.x;
-  const float* xr = x + (long long)m * K;
-  float mx = 0.f;
-  int has_nan = 0;
-  for (int k = tid; k < K; k += THREADS) {
-    float v = fabsf(xr[k]);
-    has_nan |= isnan(v);
-    mx = fmaxf(mx, v);
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    has_nan |= __shfl_xor_sync(0xffffffffu, has_nan, o);
-  }
-  if (tid % 32 == 0) { red[tid / 32] = mx; red_nan[tid / 32] = has_nan; }
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < THREADS / 32; ++w) {
-      mx = fmaxf(mx, red[w]);
-      has_nan |= red_nan[w];
-    }
-    float bound = has_nan ? __int_as_float(0x7fc00000) : fmaxf(mx, 1e-8f);
-    s_scale = bound / qmax;
-    a_scale[m] = s_scale;
-  }
-  __syncthreads();
-  const float s = s_scale;
-  int8_t* xqr = xq + (long long)m * K;
-  for (int k = tid; k < K; k += THREADS) {
-    float q = fminf(fmaxf(rintf(xr[k] / s), -qmax - 1.f), qmax);
-    xqr[k] = (int8_t)__float2int_rn(q);
-  }
-  __syncthreads();
-  // per-group row sums of the codes just written (visible after the barrier)
-  const int groups = K / group, warp = tid / 32, lane = tid % 32;
-  for (int gi = warp; gi < groups; gi += THREADS / 32) {
-    int acc = 0;
-    for (int k = lane; k < group; k += 32) acc += xqr[(long long)gi * group + k];
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) rsum[(long long)m * groups + gi] = acc;
-  }
-}
 
 template <int BITS>
 __global__ void __launch_bounds__(THREADS)
@@ -284,7 +236,8 @@ extern "C" int aq_w4a8_matmul(const float* x, int8_t* xq, float* a_scale,
                               int a_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float qmax = (float)((1 << (a_bits - 1)) - 1);
-  act_quant_kernel<<<M, THREADS, 0, s>>>(x, xq, a_scale, rsum, K, group, qmax);
+  aq::act_quant_kernel<<<M, aq::ACT_THREADS, 0, s>>>(x, xq, a_scale, rsum, K,
+                                                     group, qmax);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   switch (bits) {

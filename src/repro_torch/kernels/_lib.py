@@ -27,7 +27,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("dequant_matmul.cu", "w4a8_matmul.cu", "flash_decode.cu",
-           "flash_prefill.cu")
+           "flash_prefill.cu", "int8_matmul.cu", "quantize_pack.cu")
 HEADERS = ("common.cuh", "flash_common.cuh")
 # IEEE division and rounding are part of the kernels' contract with their
 # plain versions: no --use_fast_math.
@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"dequant_matmul": 0, "w4a8_matmul": 0, "flash_decode": 0,
             "flash_prefill": 0, "flash_decode_paged": 0,
-            "flash_prefill_paged": 0}
+            "flash_prefill_paged": 0, "int8_matmul": 0, "w8a8_matmul": 0,
+            "quantize_pack": 0}
 BUILD_INFO: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -59,6 +60,12 @@ _SIGNATURES = {
     # q, k, v, k_scale, v_scale, page_table, offset, chunk_len, out, B,
     # page, max_pages, Hkv, C, G, D, scale, kv_bits, stream
     "aq_flash_prefill_paged": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # x_q, x_scale, w_q, w_scale, out, workspace, M, K, N, stream
+    "aq_int8_matmul": [_P] * 6 + [_I] * 3 + [_P],
+    # x, x_q, x_scale, w_q, w_scale, out, workspace, M, K, N, stream
+    "aq_w8a8_matmul": [_P] * 7 + [_I] * 3 + [_P],
+    # w, packed, scale, zp, K, N, bits, group, stream
+    "aq_quantize_pack": [_P] * 4 + [_I] * 4 + [_P],
 }
 _LIB = None
 

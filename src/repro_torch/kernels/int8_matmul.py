@@ -1,4 +1,5 @@
-"""Weight-activation packed matmul (the W4A4 / W4A8 serving path).
+"""Integer-activation matmuls: the packed W4A4 / W4A8 serving path and the
+int8 x int8 pair (``int8_matmul``, ``w8a8_matmul``).
 
 ``quant_matmul_plain`` is the plain PyTorch version of the reference's
 ``quant_matmul_ref``: per-token dynamic symmetric ``a_bits`` activation
@@ -8,6 +9,15 @@ small integers, exact far past any group length here, since CUDA has no
 int32 matmul), and the float32 epilogue in the reference's op order.
 ``w4a8_matmul`` runs it for CPU tensors and launches
 ``csrc/w4a8_matmul.cu`` for CUDA tensors.
+
+``int8_matmul_plain`` and ``w8a8_dynamic_plain`` are the reference's
+``int8_matmul_ref`` and ``w8a8_dynamic_ref``: int8 codes times int8
+per-channel weight codes, the int32 dot converted to float32 once (round
+to nearest) and scaled as ``(f32(acc) * x_scale) * w_scale``; the dynamic
+form first quantizes each row with one whole-row scale, as the reference
+does (the TPU kernel's per-K-slab scale is a tiling artifact and is not
+reproduced).  ``int8_matmul`` and ``w8a8_matmul`` launch
+``csrc/int8_matmul.cu`` for CUDA tensors.
 
 Divisions here and in the quantizers divide by a tensor: PyTorch turns a
 division by a Python number into a multiply by its reciprocal, which is
@@ -22,17 +32,27 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.dequant_matmul import check_packed
 
 
+def act_quant_plain(x: torch.Tensor, a_bits: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric ``a_bits`` codes of x (M, K) with one whole-row
+    scale: (codes (M, K) as float32, a_scale (M, 1) float32).  A NaN row
+    keeps a NaN scale and NaN codes (the kernels' codes of such a row
+    differ, its output row is NaN all the same)."""
+    xf = x.to(torch.float32)
+    qmax = 2.0 ** (a_bits - 1) - 1.0
+    bound = torch.clamp_min(torch.amax(xf.abs(), dim=-1, keepdim=True), 1e-8)
+    a_scale = bound / torch.full_like(bound, qmax)        # IEEE quotient
+    x_q = torch.clamp(torch.round(xf / a_scale), -qmax - 1.0, qmax)
+    return x_q, a_scale
+
+
 def quant_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                        scale: torch.Tensor, zp: torch.Tensor, *, bits: int,
                        group_size: int, a_bits: int) -> torch.Tensor:
     """x (M, K) float -> (M, N) in x.dtype."""
     m, k = x.shape
     n = packed.shape[-1]
-    xf = x.to(torch.float32)
-    qmax = 2.0 ** (a_bits - 1) - 1.0
-    bound = torch.clamp_min(torch.amax(xf.abs(), dim=-1, keepdim=True), 1e-8)
-    a_scale = bound / torch.full_like(bound, qmax)
-    x_q = torch.clamp(torch.round(xf / a_scale), -qmax - 1.0, qmax)
+    x_q, a_scale = act_quant_plain(x, a_bits)
     off = 2 ** (bits - 1)
     g = group_size or k
     groups = k // g
@@ -69,4 +89,99 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 a_scale.data_ptr(), rsum.data_ptr(), packed.data_ptr(),
                 scale.data_ptr(), zp.data_ptr(), y.data_ptr(), m, k, n, bits,
                 g, a_bits)
+    return y
+
+
+# The kernel's decode body (M <= DECODE_M) splits K into pieces of
+# DECODE_K_SPLIT rows and sums their int32 partials in a workspace
+# (csrc/int8_matmul.cu: DEC_MMAX, 4 * DEC_KQ).
+DECODE_M, DECODE_K_SPLIT = 8, 512
+
+
+def int8_matmul_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
+                      w_q: torch.Tensor, w_scale: torch.Tensor
+                      ) -> torch.Tensor:
+    """x_q (M, K) int8 codes (any dtype holding them), x_scale (M, 1),
+    w_q (K, N) int8, w_scale (N,) -> (M, N) float32.  The dot is exact:
+    |acc| <= K * 128 * 128, far inside float64's integers; float64 -> float32
+    rounds to nearest, as int32 -> float32 does."""
+    acc = torch.matmul(x_q.to(torch.float64), w_q.to(torch.float64))
+    out = acc.to(torch.float32) * x_scale.to(torch.float32).reshape(-1, 1)
+    return out * w_scale.to(torch.float32)[None, :]
+
+
+def w8a8_dynamic_plain(x: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) float -> (M, N) in x.dtype: int8 codes of each row
+    (:func:`act_quant_plain` at 8 bits), then :func:`int8_matmul_plain`."""
+    x_q, x_scale = act_quant_plain(x, 8)
+    return int8_matmul_plain(x_q, x_scale, w_q, w_scale).to(x.dtype)
+
+
+def _workspace(m: int, k: int, n: int, device) -> torch.Tensor:
+    """The decode body's int32 partial sums (splits, M, N); empty for the
+    tile body."""
+    splits = max(1, -(-k // DECODE_K_SPLIT)) if m <= DECODE_M else 0
+    return torch.empty((splits, m, n), dtype=torch.int32, device=device)
+
+
+def _check_int8(name, x, w_q, w_scale, *more) -> None:
+    """Shared wrapper checks of the two int8-weight kernels (``more``: other
+    inputs on the same device)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[0]:
+        raise ValueError(f"{name}: x (M, K) and w_q (K, N) expected, got "
+                         f"{tuple(x.shape)} and {tuple(w_q.shape)}")
+    if (w_q.dtype != torch.int8 or w_scale.dtype != torch.float32
+            or w_scale.shape != (w_q.shape[1],)):
+        raise ValueError(f"{name}: w_q (K, N) int8 and w_scale (N,) float32 "
+                         f"expected")
+    _lib.check_cuda(name, x, w_q, w_scale, *more)
+
+
+def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+    x_q (M, K) int8, x_scale (M, 1) float32 -> (M, N) float32."""
+    if x_q.device.type == "cpu":
+        return int8_matmul_plain(x_q, x_scale, w_q, w_scale)
+    _check_int8("int8_matmul", x_q, w_q, w_scale, x_scale)
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    if (x_q.dtype != torch.int8 or x_scale.dtype != torch.float32
+            or x_scale.shape != (m, 1)):
+        raise ValueError("int8_matmul: x_q (M, K) int8 and x_scale (M, 1) "
+                         "float32 expected")
+    y = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    if y.numel() == 0:
+        return y
+    part = _workspace(m, k, n, x_q.device)
+    _lib.launch("int8_matmul", x_q.data_ptr(), x_scale.data_ptr(),
+                w_q.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
+                part.data_ptr(), m, k, n)
+    return y
+
+
+def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version for CPU tensors, the CUDA kernel (whole-row activation
+    pre-pass, then the int8 dot) for CUDA tensors.  x (M, K) float32."""
+    if x.device.type == "cpu":
+        return w8a8_dynamic_plain(x, w_q, w_scale)
+    _check_int8("w8a8_matmul", x, w_q, w_scale)
+    if x.dtype != torch.float32:
+        raise ValueError(f"w8a8_matmul kernel takes float32 x, got {x.dtype}")
+    m, k = x.shape
+    n = w_q.shape[1]
+    dev = x.device
+    x_q = torch.empty((m, k), dtype=torch.int8, device=dev)
+    x_scale = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y
+    part = _workspace(m, k, n, dev)
+    _lib.launch("w8a8_matmul", x.data_ptr(), x_q.data_ptr(),
+                x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                y.data_ptr(), part.data_ptr(), m, k, n)
     return y

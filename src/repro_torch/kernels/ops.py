@@ -3,9 +3,14 @@
 ``mode="auto"``: each kernel wrapper runs its CUDA kernel for CUDA tensors
 and its plain version for CPU tensors.  ``mode="plain"``: the plain version
 on any device (the on-card reference the kernels are held against).
-Matmuls take x (..., K) and a :class:`QTensor`; attention takes q in the
-model's (B, T, Hq, D) layout and the cache tuple as stored (linear, or
-page pools with a ``page_table``).
+Matmuls take x (..., K) and a :class:`QTensor` (``w8a8_matmul``: int8
+codes and per-channel scales); attention takes q in the model's
+(B, T, Hq, D) layout and the cache tuple as stored (linear, or page pools
+with a ``page_table``).  3-bit weights are a storage format the kernels do
+not unpack: the packed matmuls and ``quantize_pack`` send them to their
+plain versions on every device, as the reference sends them to its ref
+math.  The pre-quantized ``int8_matmul`` has no wrapper here (nor in the
+reference): call :func:`repro_torch.kernels.int8_matmul.int8_matmul`.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from repro_torch.kernels import dequant_matmul as dq
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import int8_matmul as i8
+from repro_torch.kernels import quantize_pack as qp
 
 MODES = ("auto", "plain")
 DEFAULT_BLOCK_KV = 512   # plain-version tile, clamped to S like the reference
@@ -28,24 +34,25 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"mode={mode!r}: use one of {MODES}")
 
 
-def _rows(x: torch.Tensor, qt: QTensor):
+def _rows(x: torch.Tensor, d_out: int):
     """(..., K) -> (M, K) contiguous, the lead shape, and an empty-M result
     (zero rows give a zero-row output without a launch)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     empty = None
     if x2.shape[0] == 0:
-        empty = torch.zeros((*lead, qt.d_out), dtype=x.dtype, device=x.device)
+        empty = torch.zeros((*lead, d_out), dtype=x.dtype, device=x.device)
     return x2, lead, empty
 
 
 def dequant_matmul(x: torch.Tensor, qt: QTensor, *, mode: str = "auto"):
     """y = x @ dequant(qt), x (..., K) -> (..., N)."""
     _check_mode(mode)
-    x2, lead, empty = _rows(x, qt)
+    x2, lead, empty = _rows(x, qt.d_out)
     if empty is not None:
         return empty
-    fn = dq.dequant_matmul_plain if mode == "plain" else dq.dequant_matmul
+    plain = mode == "plain" or qt.bits == 3
+    fn = dq.dequant_matmul_plain if plain else dq.dequant_matmul
     out = fn(x2, qt.packed, qt.scale, qt.zp, bits=qt.bits,
              group_size=qt.group_size)
     return out.reshape(*lead, out.shape[-1])
@@ -61,13 +68,37 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, a_bits: int,
     if not 2 <= a_bits <= 8:
         raise ValueError(f"a_bits={a_bits} unsupported: use 2..8 (int8 "
                          f"lanes) or >= 16 (float activations)")
-    x2, lead, empty = _rows(x, qt)
+    x2, lead, empty = _rows(x, qt.d_out)
     if empty is not None:
         return empty
-    fn = i8.quant_matmul_plain if mode == "plain" else i8.w4a8_matmul
+    plain = mode == "plain" or qt.bits == 3
+    fn = i8.quant_matmul_plain if plain else i8.w4a8_matmul
     out = fn(x2, qt.packed, qt.scale, qt.zp, bits=qt.bits,
              group_size=qt.group_size, a_bits=a_bits)
     return out.reshape(*lead, out.shape[-1])
+
+
+def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                *, mode: str = "auto"):
+    """y = dyn_quant8(x) @ w_q * w_scale, x (..., K), w_q (K, N) int8,
+    w_scale (N,) -> (..., N) in x.dtype; one whole-row activation scale."""
+    _check_mode(mode)
+    x2, lead, empty = _rows(x, w_q.shape[-1])
+    if empty is not None:
+        return empty
+    fn = i8.w8a8_dynamic_plain if mode == "plain" else i8.w8a8_matmul
+    out = fn(x2, w_q, w_scale)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def quantize_pack(w: torch.Tensor, *, bits: int, group_size: int,
+                  mode: str = "auto"):
+    """w (K, N) float -> (packed, scale, zp), per-group asymmetric RTN codes
+    packed along K; ``group_size`` 0 is one K-wide group."""
+    _check_mode(mode)
+    if mode == "plain" or bits == 3:
+        return qp.quantize_pack_plain(w, bits, group_size)
+    return qp.quantize_pack(w, bits=bits, group_size=group_size)
 
 
 def _unpack_kv(kv):

@@ -1,4 +1,11 @@
-"""The kv4 cache format: block-32 microscaling int4 codes.
+"""Per-group weight quantize + pack, and the kv4 cache format.
+
+:func:`quantize_pack_plain` is the reference's ``quantize_pack_ref``: per
+(K group, column) asymmetric min/max RTN codes on the serving quantizer's
+grid (``core.quantizer``, the same ops in the same order), packed
+little-endian along K (:func:`repro_torch.core.packing.pack`).
+:func:`quantize_pack` runs it for CPU tensors and launches
+``csrc/quantize_pack.cu`` for CUDA tensors.
 
 K/V vectors are stored as two signed int4 codes per byte along D
 (:func:`repro_torch.core.packing.pack_nibbles`) with one bfloat16 scale per
@@ -6,14 +13,15 @@ block of ``KV_BLOCK`` = 32 values.  :func:`kv4_quantize` is the
 quantize-on-write step of the serving model; :func:`kv4_dequant` is the
 dequantization the plain flash versions run per tile and the CUDA kernels
 run per element (a code times its widened bf16 scale, exact in float32).
-The per-group weight ``quantize_pack`` kernel of the reference is not
-ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.packing import pack_nibbles, unpack_nibbles
+from repro_torch.core.packing import pack, pack_nibbles, unpack_nibbles
+from repro_torch.core.quantizer import QuantConfig, quantize_weight_int
+from repro_torch.kernels import _lib
+from repro_torch.kernels.dequant_matmul import KERNEL_BITS
 
 KV_BLOCK = 32     # values sharing one bf16 scale
 KV4_QMAX = 7.0    # symmetric int4 grid: codes in [-8, 7]
@@ -56,3 +64,56 @@ def kv4_dequant(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     block = torch.repeat_interleave(scales.to(torch.float32), KV_BLOCK,
                                     dim=-1)
     return codes.to(torch.float32) * block
+
+
+def check_group(k: int, group_size: int) -> int:
+    """The reference's shape contract: the effective group divides K and
+    is a multiple of 8 (one packing unit); returns it."""
+    g = group_size or k
+    if k % g or g % 8:
+        raise ValueError(f"quantize_pack needs a group (g={g}) that divides "
+                         f"K={k} and is a multiple of 8")
+    return g
+
+
+def quantize_pack_plain(w: torch.Tensor, bits: int, group_size: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """w (K, N) float -> (packed (K // 8 * bits, N) uint8, scale (K // g, N)
+    float32, zp (K // g, N) float32); ``group_size`` 0 is one K-wide group.
+    The grid is the serving quantizer's (``quantize_weight_int``, the
+    reference's op order).  Weights are finite (a NaN's uint8 code is
+    undefined in the reference too)."""
+    check_group(w.shape[0], group_size)
+    codes, scale, zp = quantize_weight_int(
+        w, QuantConfig(w_bits=bits, group_size=group_size))
+    return pack(codes, bits), scale, zp
+
+
+def quantize_pack(w: torch.Tensor, *, bits: int, group_size: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if w.ndim != 2:
+        raise ValueError(f"quantize_pack takes a (K, N) weight, got "
+                         f"{tuple(w.shape)}")
+    if w.device.type == "cpu":
+        return quantize_pack_plain(w, bits, group_size)
+    k, n = w.shape
+    g = check_group(k, group_size)
+    if w.device.type != "cuda":
+        raise ValueError(f"quantize_pack: no kernel for device {w.device}")
+    if bits not in KERNEL_BITS:
+        raise NotImplementedError(f"quantize_pack kernel: {bits}-bit codes "
+                                  f"take the plain route (ops.quantize_pack)")
+    if w.dtype != torch.float32:
+        raise ValueError(f"quantize_pack kernel takes float32 w, got "
+                         f"{w.dtype}")
+    _lib.check_cuda("quantize_pack", w)
+    dev = w.device
+    packed = torch.empty((k // 8 * bits, n), dtype=torch.uint8, device=dev)
+    scale = torch.empty((k // g, n), dtype=torch.float32, device=dev)
+    zp = torch.empty((k // g, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return packed, scale, zp
+    _lib.launch("quantize_pack", w.data_ptr(), packed.data_ptr(),
+                scale.data_ptr(), zp.data_ptr(), k, n, bits, g)
+    return packed, scale, zp

@@ -11,6 +11,9 @@ Tolerances: w4a8_matmul has an exact integer dot and the plain version's
 float32 epilogue, so it must agree to 1e-6 of the output's magnitude
 (bit-equal in practice); dequant_matmul and the attention kernels sum in
 another order than the plain version: 1e-5 of the output's magnitude.
+int8_matmul, w8a8_matmul and quantize_pack must equal their plain versions
+bit for bit (``torch.equal``): an exact integer dot with the same float32
+epilogue, and the same IEEE quotients and roundings.
 """
 import numpy as np
 import pytest
@@ -28,8 +31,13 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_paged,
                                                flash_prefill_paged_plain,
                                                flash_prefill_plain)
-from repro_torch.kernels.int8_matmul import quant_matmul_plain, w4a8_matmul
-from repro_torch.kernels.quantize_pack import kv4_quantize
+from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_plain,
+                                             quant_matmul_plain,
+                                             w4a8_matmul, w8a8_dynamic_plain,
+                                             w8a8_matmul)
+from repro_torch.kernels.quantize_pack import (kv4_quantize, quantize_pack,
+                                               quantize_pack_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +98,79 @@ def test_w4a8_matmul_nan_row_stays_in_its_row(dev):
     y = w4a8_matmul(x, *w, bits=4, group_size=64, a_bits=4)
     assert torch.isnan(y[2]).all()
     assert torch.isfinite(y[[0, 1, 3, 4]]).all()
+
+
+# (M, K, N): decode-shaped (M <= 8) and tile-shaped M, ragged in all three
+# (K not a multiple of 16 or 4, N not a multiple of 64 or 4)
+INT8_SHAPES = [(1, 128, 64), (5, 200, 130), (8, 1000, 96), (9, 256, 128),
+               (37, 384, 200), (70, 130, 45), (130, 520, 258)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_matmul_kernel(dev, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x_q = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(dev)
+    x_scale = torch.from_numpy((rng.random((m, 1)) * 0.05 + 0.01).astype(np.float32)).to(dev)
+    w_q = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(dev)
+    w_scale = torch.from_numpy((rng.random(n) * 0.05 + 0.01).astype(np.float32)).to(dev)
+    got = int8_matmul(x_q, x_scale, w_q, w_scale)
+    assert torch.equal(got, int8_matmul_plain(x_q, x_scale, w_q, w_scale))
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_w8a8_matmul_kernel(dev, m, k, n):
+    rng = np.random.default_rng(1 + m + k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    x[m // 2] = 0.0                                   # the 1e-8 clamp
+    w_q = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(dev)
+    w_scale = torch.from_numpy((rng.random(n) * 0.05 + 0.01).astype(np.float32)).to(dev)
+    got = w8a8_matmul(x, w_q, w_scale)
+    assert torch.equal(got, w8a8_dynamic_plain(x, w_q, w_scale))
+    assert torch.equal(ops.w8a8_matmul(x.reshape(1, m, k), w_q, w_scale),
+                       got.reshape(1, m, n))
+
+
+def test_w8a8_matmul_nan_row_stays_in_its_row(dev):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((12, 256)).astype(np.float32)).to(dev)
+    x[3, 100] = float("nan")
+    w_q = torch.from_numpy(rng.integers(-128, 128, (256, 40)).astype(np.int8)).to(dev)
+    w_scale = torch.ones(40, device=dev)
+    for rows in (slice(0, 5), slice(0, 12)):          # decode and tile bodies
+        y = w8a8_matmul(x[rows].contiguous(), w_q, w_scale)
+        assert torch.isnan(y[3]).all()
+        assert torch.isfinite(y[[0, 1, 2, 4]]).all()
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n,g", [(256, 100, 32), (512, 130, 0), (128, 64, 8),
+                                   (1024, 96, 128)])
+def test_quantize_pack_kernel(dev, bits, k, n, g):
+    rng = np.random.default_rng(bits + k + n + g)
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(np.float32)).to(dev)
+    got = quantize_pack(w, bits=bits, group_size=g)
+    want = quantize_pack_plain(w, bits, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_ops_bits3_on_the_card_takes_the_plain_route(dev):
+    """3-bit weights never reach a kernel: ops packs and multiplies them with
+    the plain versions on CUDA tensors too, as the reference sends them to
+    its ref math."""
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy((rng.standard_normal((128, 40)) * 0.05).astype(np.float32)).to(dev)
+    packed, scale, zp = ops.quantize_pack(w, bits=3, group_size=0)
+    for a, b in zip((packed, scale, zp), quantize_pack_plain(w, 3, 0)):
+        assert torch.equal(a, b)
+    qt = QTensor(packed, scale, zp, 3, 128)
+    x = torch.from_numpy(rng.standard_normal((5, 128)).astype(np.float32)).to(dev)
+    assert torch.equal(ops.dequant_matmul(x, qt),
+                       dequant_matmul_plain(x, packed, scale, zp, bits=3,
+                                            group_size=128))
+    assert torch.equal(ops.quant_matmul(x, qt, a_bits=8),
+                       quant_matmul_plain(x, packed, scale, zp, bits=3,
+                                          group_size=128, a_bits=8))
 
 
 def _cache(rng, b, s, hkv, d, kv8, dev):

@@ -13,7 +13,9 @@ from repro_torch.kernels.dequant_matmul import dequant_matmul
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_paged)
-from repro_torch.kernels.int8_matmul import w4a8_matmul
+from repro_torch.kernels.int8_matmul import (int8_matmul, w4a8_matmul,
+                                             w8a8_matmul)
+from repro_torch.kernels.quantize_pack import quantize_pack
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -62,8 +64,14 @@ def _meta(*shape, dtype=torch.float32):
                                 _meta(1, 2, dtype=torch.int32),
                                 _meta(1, dtype=torch.int32),
                                 _meta(1, dtype=torch.int32)),
+    lambda: int8_matmul(_meta(2, 64, dtype=torch.int8), _meta(2, 1),
+                        _meta(64, 16, dtype=torch.int8), _meta(16)),
+    lambda: w8a8_matmul(_meta(2, 64), _meta(64, 16, dtype=torch.int8),
+                        _meta(16)),
+    lambda: quantize_pack(_meta(64, 16), bits=4, group_size=32),
 ], ids=["dequant_matmul", "w4a8_matmul", "flash_decode", "flash_prefill",
-        "flash_decode_paged", "flash_prefill_paged"])
+        "flash_decode_paged", "flash_prefill_paged", "int8_matmul",
+        "w8a8_matmul", "quantize_pack"])
 def test_wrappers_refuse_non_cpu_tensors_they_cannot_launch(call):
     """A wrapper runs its plain version only for CPU tensors."""
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -79,6 +87,10 @@ def test_cuda_requests_without_cuda_raise(monkeypatch):
     monkeypatch.setattr(_lib, "_LIB", None)
     with pytest.raises(RuntimeError, match="CUDA"):
         _lib.lib()
+    # the launch every kernel wrapper makes for CUDA tensors
+    for kernel in ("int8_matmul", "w8a8_matmul", "quantize_pack"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            _lib.launch(kernel)
     with pytest.raises(RuntimeError, match="cuda"):
         QuantizedModel(get_config("llama-micro"), QuantConfig())
     with pytest.raises(RuntimeError, match="cuda"):
