@@ -16,7 +16,11 @@ failure raises (exit code != 0).
    their type).  Times are CUDA-event medians with the 50 MB L2 flushed
    before every launch, since the serving path finds each weight cold.
    Each paged kernel must equal its linear kernel bit for bit on the same
-   contents, and a one-token chunk must equal decode, in every format.
+   contents, a one-token chunk must equal decode, and a chunk split in two
+   must equal the whole chunk, in every format and both layouts;
+   dequant_matmul's rows must be the same at M = 4 as in the M = 512
+   product.  Where PERF.md records an earlier time of a case (PR 13), the
+   log line shows it beside the new one.
    int8_matmul and w8a8_matmul at the four llama-7b linear shapes, and
    quantize_pack at the llama-7b weight shapes (w4 g128 both ways, w2, w8
    and per-channel w4), must equal their plain versions bit for bit.
@@ -81,6 +85,18 @@ KERNELS = {"w4a8_matmul": "w4a8_matmul.cu",        # name -> source file
 # (M, K, N) of llama-7b's linears: decode (M 4) and a 512-token prefill
 LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
                  (512, 4096, 11008))
+# Earlier times of the redesigned kernels as PERF.md records them (H100
+# 80GB HBM3, 700 W), logged beside this run's.
+_MAIN_PREFILL = "B=4 C=128 S=128 Hkv=32 G=1 D=128 kv{} offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]"
+_MAIN_PAGED = ("B=4 C=128 pages of 64, 8/seq, Hkv=32 G=1 D=128 kv{} "
+               "offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]")
+EARLIER_MS = {
+    "dequant_matmul M=4 K=4096 N=11008 w4 g128": 0.3616,
+    "flash_prefill " + _MAIN_PREFILL.format(8): 0.1794,
+    "flash_prefill " + _MAIN_PREFILL.format(4): 0.2205,
+    "flash_prefill_paged " + _MAIN_PAGED.format(8): 0.1859,
+    "flash_prefill_paged " + _MAIN_PAGED.format(4): 0.2639,
+}
 
 
 def log(msg: str) -> None:
@@ -206,8 +222,10 @@ def main() -> None:
 def _record(results, name, case, err, tol, ms, plain_ms, lib_ms, bms, by,
             replaces, main_case):
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    earlier = EARLIER_MS.get(f"{name} {case}")
+    earlier = "" if earlier is None else f" (PERF.md, earlier body: {earlier:.4f} ms)"
     log(f"[kernel] {name} {case}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, "
+        f"kernel {ms:.4f} ms{earlier}, plain {plain_ms:.4f} ms, library {lib}, "
         f"bound {bms:.4f} ms ({by})")
     if not err <= tol:
         raise RuntimeError(f"{name} {case}: error {err} above tolerance {tol}")
@@ -298,6 +316,15 @@ def check_kernels(torch, timer, results) -> None:
         want = dq.dequant_matmul_plain(x, packed, scale, zp, bits=bits,
                                        group_size=g)
         got = dq.dequant_matmul(x, packed, scale, zp, bits=bits, group_size=g)
+        if m > 4:
+            # rows do not depend on M: decode body (M = 4) vs tile body
+            if not torch.equal(dq.dequant_matmul(x[:4], packed, scale, zp,
+                                                 bits=bits, group_size=g),
+                               got[:4]):
+                raise RuntimeError(f"dequant_matmul {k}->{n}: rows at M=4 "
+                                   f"differ from the same rows at M={m}")
+            log(f"[kernel] dequant_matmul {k}->{n}: rows at M=4 equal the "
+                f"first 4 rows at M={m} (bit-equal)")
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = 1e-4 * want.abs().max().item()
@@ -417,6 +444,32 @@ def check_kernels(torch, timer, results) -> None:
         raise RuntimeError("a one-token flash_prefill chunk differs from "
                            "flash_decode")
     log("[kernel] one-token flash_prefill == flash_decode (bit-equal)")
+    check_chunk_split(torch, "flash_prefill", gen, lambda kv, o, n, qq:
+                      fp.flash_prefill(qq, kv[0], kv[1], o, n, kv[2], kv[3]),
+                      lambda kv_bits: cache(32, kv_bits))
+
+
+def check_chunk_split(torch, name, gen, call, make_cache) -> None:
+    """Raise unless a chunk split in two equals the whole chunk bit for bit
+    (llama-7b: B 4, Hkv 32, G 1, D 128, C 128, ragged offsets and lengths
+    including 0; splits after 37 and 64 tokens), kv16/kv8/kv4."""
+    dev = "cuda"
+    off = torch.tensor([0, 64, 300, 17], dtype=torch.int32, device=dev)
+    cl = torch.tensor([128, 100, 0, 1], dtype=torch.int32, device=dev)
+    for kv_bits in (16, 8, 4):
+        kv = make_cache(kv_bits)
+        q = torch.randn((4, 32, 128, 1, 128), generator=gen, device=dev)
+        whole = call(kv, off, cl, q)
+        for c1 in (37, 64):
+            first = call(kv, off, torch.clamp(cl, max=c1),
+                         q[:, :, :c1].contiguous())
+            second = call(kv, off + c1, torch.clamp(cl - c1, min=0),
+                          q[:, :, c1:].contiguous())
+            if not torch.equal(torch.cat([first, second], 2), whole):
+                raise RuntimeError(f"{name} kv{kv_bits}: two chunks split "
+                                   f"after {c1} tokens differ from the whole")
+    log(f"[kernel] {name}: two chunks == the whole chunk (bit-equal, "
+        f"kv16/kv8/kv4, splits after 37 and 64 tokens)")
 
 
 def paged_case(torch, gen, lens, hkv, d, ps, kv_bits, max_pages):
@@ -588,6 +641,13 @@ def check_paged_kernels(torch, timer, results) -> None:
                                f"chunk differs from flash_decode_paged")
     log("[kernel] one-token flash_prefill_paged == flash_decode_paged "
         "(bit-equal, kv16/kv8/kv4)")
+    # pages of 64, 8 per sequence, holding positions up to 428
+    check_chunk_split(
+        torch, "flash_prefill_paged", gen,
+        lambda kv, o, n, qq: fp.flash_prefill_paged(qq, kv[0][0], kv[0][1],
+                                                    kv[1], o, n, *kv[0][2:]),
+        lambda kv_bits: paged_case(torch, gen, (128, 192, 300, 18), 32, d, 64,
+                                   kv_bits, 8)[:2])
 
 
 def _require_equal(torch, name, case, got, want) -> None:

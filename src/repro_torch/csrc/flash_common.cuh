@@ -1,17 +1,24 @@
-// Block body shared by flash_decode.cu and flash_prefill.cu, linear and
-// paged.
+// What the flash kernels share: the cache views and dequantization, the
+// online-softmax step (flash_softmax) and the output (flash_out), and the
+// decode block body (flash_rows), which flash_decode.cu runs for its linear
+// and paged entries.  flash_prefill.cu runs its own block body, laid out
+// for many rows (see its header), that computes each row with the same
+// float operations in the same order as flash_rows: every operation that
+// could round differently is written with an explicitly rounded intrinsic
+// (__fmul_rn, __fsub_rn, __fadd_rn, __fdiv_rn) or fmaf, so nvcc cannot
+// contract it differently in the two bodies.  That is what makes a
+// one-token prefill chunk equal decode on the same cache bit for bit.
 //
 // A block owns up to RT query rows of one (batch, kv-head) pair; row r
 // attends the cache positions [0, end[r]) of that pair and end[r] == 0 means
 // a zero output row.  Decode gives its G folded query heads end = cur_len;
 // prefill gives chunk row (c, g) end = offset + c + 1 while c < chunk_len.
-// Sharing the body is what makes a one-token prefill chunk equal decode on
-// the same cache bit for bit, and a paged kernel equal its linear kernel:
-// the two layouts differ only in the cache row that position p maps to
-// (p itself, or page_table[p / page] * page + p % page), which each tile
-// resolves once per position, so a 32-position tile may span pages of any
-// size.  Only pages below ceil(end / page) are looked up; a -1 entry there
-// reads pool page 0, as the reference's gather does.
+// A paged kernel equals its linear kernel: the two layouts differ only in
+// the cache row that position p maps to (p itself, or
+// page_table[p / page] * page + p % page), which each tile resolves once
+// per position, so a 32-position tile may span pages of any size.  Only
+// pages below ceil(end / page) are looked up; a -1 entry there reads pool
+// page 0, as the reference's gather does.
 //
 // The KV walk is a loop inside the block (the TPU kernel's sequential grid
 // axis): tiles of T = 32 positions up to max_r end[r], so work and reads
@@ -28,10 +35,10 @@
 // max.  A masked position never enters the p @ v sum at all (a NaN left in
 // a stale slot cannot leak through 0 * NaN).
 //
-// Threads: 4 warps.  Scores: lane = position in the tile, warp = row
-// (RT / 4 rows each), rows padded by one float in shared memory against
-// bank conflicts.  p @ v: thread t owns head-dim columns t and t + 128 for
-// all RT rows, so D <= 256.
+// flash_rows' threads: 4 warps.  Scores: lane = position in the tile, warp
+// = row (RT / 4 rows each), rows padded by one float in shared memory
+// against bank conflicts.  p @ v: thread t owns head-dim columns t and
+// t + 128 for all RT rows, so D <= 256.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,6 +92,14 @@ __device__ __forceinline__ KVView kv_view(const void* k, const void* v,
   return kv;
 }
 
+// kv4 nibbles of a sign-extended byte x: d even (low) and d odd (high).
+__device__ __forceinline__ int kv4_lo(int x) { return (int)((unsigned)x << 28) >> 28; }
+__device__ __forceinline__ int kv4_hi(int x) { return x >> 4; }
+// A bfloat16 scale's bits, widened to float32 exactly.
+__device__ __forceinline__ float bf16_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
 // Value d of cache row `row`, dequantized to float32.
 template <int KVB>
 __device__ __forceinline__ float kv_value(const char* base, const char* sbase,
@@ -93,13 +108,68 @@ __device__ __forceinline__ float kv_value(const char* base, const char* sbase,
   const char* r = base + row * row_bytes;
   if (KVB == 16) return reinterpret_cast<const float*>(r)[d];
   if (KVB == 8)
-    return (float)reinterpret_cast<const int8_t*>(r)[d] *
-           *reinterpret_cast<const float*>(sbase + row * srow_bytes);
+    return __fmul_rn((float)reinterpret_cast<const int8_t*>(r)[d],
+                     *reinterpret_cast<const float*>(sbase + row * srow_bytes));
   const int x = (int)reinterpret_cast<const int8_t*>(r)[d >> 1];
-  const int code = (d & 1) ? (x >> 4) : ((int)((unsigned)x << 28) >> 28);
   const unsigned bits = *reinterpret_cast<const uint16_t*>(
       sbase + row * srow_bytes + (d / KV4_BLOCK) * 2);
-  return (float)code * __uint_as_float(bits << 16);
+  return __fmul_rn((float)((d & 1) ? kv4_hi(x) : kv4_lo(x)), bf16_float(bits));
+}
+
+// The online-softmax update of NR rows over one 32-position tile, shared
+// by both block bodies.  Called by a whole warp whose lane is the position
+// in the tile: s[j] is the lane's scaled score for row row[j] (FLASH_MASK
+// where !valid[j]) and becomes its p (0 where !valid[j]).  The butterfly
+// max and sum fix the order of the tile's reduction; each row's running
+// max, sum and this tile's correction live at ms, ls, cs[row] (lane 0
+// writes them).  A row with no valid position in the tile (!active) keeps
+// its max and sum and gets the correction 1.  The NR rows' steps are
+// interleaved for instruction-level parallelism; each row's operations and
+// their order are those of a lone row.
+template <int NR>
+__device__ __forceinline__ void flash_softmax(float (&s)[NR],
+                                              const bool (&valid)[NR],
+                                              const bool (&active)[NR],
+                                              const int (&row)[NR], float* ms,
+                                              float* ls, float* cs, int lane) {
+  float mx[NR], m_old[NR], m_new[NR], sum[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) mx[j] = s[j];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    m_old[j] = ms[row[j]];
+    m_new[j] = fmaxf(m_old[j], mx[j]);
+    s[j] = valid[j] ? expf(__fsub_rn(s[j], m_new[j])) : 0.f;
+    sum[j] = s[j];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < NR; ++j) sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], o);
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      if (!active[j]) {
+        cs[row[j]] = 1.f;
+        continue;
+      }
+      const float corr = expf(__fsub_rn(m_old[j], m_new[j]));
+      cs[row[j]] = corr;
+      ls[row[j]] = __fadd_rn(__fmul_rn(ls[row[j]], corr), sum[j]);
+      ms[row[j]] = m_new[j];
+    }
+  }
+}
+
+// A row's output: acc / max(l, 1e-30), zero for a row that attends nothing.
+__device__ __forceinline__ float flash_out(float acc, float l, int end) {
+  return end > 0 ? __fdiv_rn(acc, fmaxf(l, 1e-30f)) : 0.f;
 }
 
 template <int RT>
@@ -170,35 +240,18 @@ __device__ void flash_rows(const float* __restrict__ q, const KVView kv, int D,
     for (int j = 0; j < RPW; ++j) {
       const int r = warp * RPW + j;
       const int pos = t0 + lane;
-      const bool valid = lane < tn && pos < ends[r];
-      float s = FLASH_MASK;
-      if (valid) {
+      float s[1] = {FLASH_MASK};
+      const bool valid[1] = {lane < tn && pos < ends[r]};
+      const bool active[1] = {t0 < ends[r]};
+      const int row[1] = {r};
+      if (valid[0]) {
         float dot = 0.f;
         for (int d = 0; d < D; ++d)
           dot = fmaf(qs[r * (D + 1) + d], ks[lane * (D + 1) + d], dot);
-        s = dot * scale;
+        s[0] = __fmul_rn(dot, scale);
       }
-      if (t0 >= ends[r]) {                   // no valid position in this tile
-        ps[r * FLASH_T + lane] = 0.f;
-        if (lane == 0) cs[r] = 1.f;
-        continue;
-      }
-      float mx = s;
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = valid ? expf(s - m_new) : 0.f;
-      float sum = p;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ps[r * FLASH_T + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        cs[r] = corr;
-        ls[r] = __fadd_rn(__fmul_rn(ls[r], corr), sum);
-        ms[r] = m_new;
-      }
+      flash_softmax<1>(s, valid, active, row, ms, ls, cs, lane);
+      ps[r * FLASH_T + lane] = s[0];
     }
     __syncthreads();
 #pragma unroll
@@ -207,7 +260,7 @@ __device__ void flash_rows(const float* __restrict__ q, const KVView kv, int D,
       if (d >= D) continue;
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
-        float a = acc[c][r] * cs[r];
+        float a = __fmul_rn(acc[c][r], cs[r]);
         const int n = min(tn, ends[r] - t0);
         for (int p = 0; p < n; ++p) a = fmaf(ps[r * FLASH_T + p], vs[p * D + d], a);
         acc[c][r] = a;
@@ -222,7 +275,7 @@ __device__ void flash_rows(const float* __restrict__ q, const KVView kv, int D,
 #pragma unroll
     for (int r = 0; r < RT; ++r)
       if (r < nrows)
-        out[(long long)r * D + d] = ends[r] > 0 ? acc[c][r] / fmaxf(ls[r], 1e-30f) : 0.f;
+        out[(long long)r * D + d] = flash_out(acc[c][r], ls[r], ends[r]);
   }
 }
 

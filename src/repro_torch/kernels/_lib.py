@@ -42,8 +42,8 @@ BUILD_INFO: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, packed, scale, zp, out, M, K, N, bits, group, stream
-    "aq_dequant_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    # x, packed, scale, zp, out, workspace, M, K, N, bits, group, stream
+    "aq_dequant_matmul": [_P] * 6 + [_I] * 5 + [_P],
     # x, xq, a_scale, rsum, packed, scale, zp, out, M, K, N, bits, group,
     # a_bits, stream
     "aq_w4a8_matmul": [_P] * 8 + [_I] * 6 + [_P],

@@ -12,6 +12,10 @@ from repro_torch.core.packing import unpack
 from repro_torch.kernels import _lib
 
 KERNEL_BITS = (2, 4, 8)
+# The kernel's K split (rows per fmaf chain) and its decode body's largest M
+# (csrc/dequant_matmul.cu).
+SPLIT = 512
+DECODE_MMAX = 8
 
 
 def dequant_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -64,7 +68,11 @@ def dequant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     m, k = x.shape
     n = packed.shape[-1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    # the decode body's (M <= 8) per-split partial sums
+    splits = -(-k // SPLIT)
+    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+            if m <= DECODE_MMAX and splits > 1 else None)
     _lib.launch("dequant_matmul", x.data_ptr(), packed.data_ptr(),
-                scale.data_ptr(), zp.data_ptr(), y.data_ptr(), m, k, n, bits,
-                g)
+                scale.data_ptr(), zp.data_ptr(), y.data_ptr(), _lib.ptr(part),
+                m, k, n, bits, g)
     return y

@@ -10,7 +10,10 @@ linear kernel bit for bit on the same contents.
 Tolerances: w4a8_matmul has an exact integer dot and the plain version's
 float32 epilogue, so it must agree to 1e-6 of the output's magnitude
 (bit-equal in practice); dequant_matmul and the attention kernels sum in
-another order than the plain version: 1e-5 of the output's magnitude.
+another order than the plain version: 1e-5 of the output's magnitude, and
+each pins its own order: a one-token prefill chunk equals decode, a chunk
+split in two equals the whole, and dequant_matmul's rows are the same at
+every M, all bit for bit.
 int8_matmul, w8a8_matmul and quantize_pack must equal their plain versions
 bit for bit (``torch.equal``): an exact integer dot with the same float32
 epilogue, and the same IEEE quotients and roundings.
@@ -77,6 +80,38 @@ def test_dequant_matmul_kernel(dev, m, k, n, bits, g):
     got = dequant_matmul(x, *w, bits=bits, group_size=g)
     want = dequant_matmul_plain(x, *w, bits=bits, group_size=g)
     assert _err(got, want) < 1e-5
+
+
+# K not a multiple of the kernel's 512-row split, N not a multiple of 4;
+# g8 / g32 / g128 and per-channel (g0)
+SPLIT_SHAPES = [(640, 130, 32), (1152, 45, 128), (1000, 70, 0), (520, 97, 8)]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n,g", SPLIT_SHAPES)
+def test_dequant_matmul_rows_equal_across_m(dev, bits, k, n, g):
+    """A row of y is the same bit for bit at every M and in both bodies
+    (decode M <= 8, tile M > 8): the first rows of an M = 70 product equal
+    the same rows run at M = 1, 4 and 8."""
+    rng = np.random.default_rng(bits + k + n + g)
+    x = torch.from_numpy(rng.standard_normal((70, k)).astype(np.float32)).to(dev)
+    w = _weight(rng, k, n, bits, g, dev)
+    full = dequant_matmul(x, *w, bits=bits, group_size=g)
+    assert _err(full, dequant_matmul_plain(x, *w, bits=bits, group_size=g)) < 1e-5
+    for m in (1, 4, 8):
+        assert torch.equal(dequant_matmul(x[:m], *w, bits=bits, group_size=g),
+                           full[:m])
+
+
+def test_dequant_matmul_nan_row_stays_in_its_row(dev):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((12, 640)).astype(np.float32)).to(dev)
+    x[3, 600] = float("nan")
+    w = _weight(rng, 640, 40, 4, 32, dev)
+    for rows in (slice(0, 5), slice(0, 12)):          # decode and tile bodies
+        y = dequant_matmul(x[rows].contiguous(), *w, bits=4, group_size=32)
+        assert torch.isnan(y[3]).all()
+        assert torch.isfinite(y[[0, 1, 2, 4]]).all()
 
 
 @pytest.mark.parametrize("a_bits", [4, 8])
@@ -223,12 +258,12 @@ def test_flash_prefill_kernel(dev, offs, cls, g, kv8):
     assert _err(got, want) < 1e-5
 
 
-@pytest.mark.parametrize("kv8", [False, True])
-def test_one_token_prefill_kernel_equals_decode_kernel(dev, kv8):
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_one_token_prefill_kernel_equals_decode_kernel(dev, kv_bits):
     rng = np.random.default_rng(2)
     b, s, hkv, g, d = 3, 128, 2, 4, 128
     q = torch.from_numpy(rng.standard_normal((b, 1, hkv * g, d)).astype(np.float32)).to(dev)
-    kv = _cache(rng, b, s, hkv, d, kv8, dev)
+    kv = _entries(rng, (b, s), hkv, d, kv_bits, dev)
     cur = torch.tensor([1, 70, 128], dtype=torch.int32, device=dev)
     dec = ops.flash_decode(q, kv, cur)
     pre = ops.flash_prefill(q, kv, cur - 1, torch.ones_like(cur))
@@ -339,6 +374,41 @@ def test_flash_prefill_paged_kernel(dev, kv_bits, ps, g):
     assert not got[2].any()
     assert torch.equal(got, flash_prefill(q, lin[0], lin[1], off, cl,
                                           *lin[2:]))
+
+
+def _prefill_in_two(call, q, off, cl, c1):
+    """The chunk as rows [0, c1) at offset ``off`` and rows [c1, C) at
+    ``off + c1``, each with its share of ``chunk_len``, joined back."""
+    first = call(q[:, :, :c1].contiguous(), off, torch.clamp(cl, max=c1))
+    second = call(q[:, :, c1:].contiguous(), off + c1,
+                  torch.clamp(cl - c1, min=0))
+    return torch.cat([first, second], dim=2)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+@pytest.mark.parametrize("g,d", [(1, 128), (4, 64)])
+def test_prefill_two_chunks_equal_whole(dev, paged, kv_bits, g, d):
+    """A chunk split in two (after 16, 17 or 70 tokens) equals the whole chunk
+    bit for bit, linear and paged, with ragged chunk_len including 0; C*G
+    spans several 64-row blocks."""
+    rng = np.random.default_rng(40 + kv_bits + g + paged)
+    hkv, c, ps = 2, 80, 16
+    offs, cls = [0, 37, 60, 9], [80, 23, 0, 1]
+    ends = [o + c for o in offs]
+    pools, pt, lin = _paged_case(rng, ends, hkv, d, ps, kv_bits, 9, dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, c, g, d)).astype(
+        np.float32)).to(dev)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cls, dtype=torch.int32, device=dev)
+    if paged:
+        call = lambda qq, o, n: flash_prefill_paged(qq, pools[0], pools[1], pt,
+                                                    o, n, *pools[2:])
+    else:
+        call = lambda qq, o, n: flash_prefill(qq, lin[0], lin[1], o, n, *lin[2:])
+    whole = call(q, off, cl)
+    for c1 in (16, 17, 70):
+        assert torch.equal(_prefill_in_two(call, q, off, cl, c1), whole)
 
 
 @pytest.mark.parametrize("g", [1, 4])
