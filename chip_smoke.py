@@ -9,7 +9,8 @@ failure raises (exit code != 0).
    source (one nvcc per file, in parallel) and loaded.
 2. kernels: each kernel against its plain PyTorch version at the llama-7b
    shapes the serving path gives it (plus kv16/kv8/kv4, GQA, ragged-length
-   and page-16 cases), with the error beside its stated tolerance, the
+   and page-16 cases, and decode over a 2048-position context in both
+   layouts), with the error beside its stated tolerance, the
    kernel's time, the plain version's time, one PyTorch library call's time
    as a yardstick (the port never calls it) and the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak rate of
@@ -19,8 +20,8 @@ failure raises (exit code != 0).
    contents, a one-token chunk must equal decode, and a chunk split in two
    must equal the whole chunk, in every format and both layouts;
    dequant_matmul's rows must be the same at M = 4 as in the M = 512
-   product.  Where PERF.md records an earlier time of a case (PR 13), the
-   log line shows it beside the new one.
+   product.  Where PERF.md records the time of a case before its kernel
+   was redesigned, the log line shows it beside the new one.
    int8_matmul and w8a8_matmul at the four llama-7b linear shapes, and
    quantize_pack at the llama-7b weight shapes (w4 g128 both ways, w2, w8
    and per-channel w4), must equal their plain versions bit for bit.
@@ -90,7 +91,14 @@ LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
 _MAIN_PREFILL = "B=4 C=128 S=128 Hkv=32 G=1 D=128 kv{} offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]"
 _MAIN_PAGED = ("B=4 C=128 pages of 64, 8/seq, Hkv=32 G=1 D=128 kv{} "
                "offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]")
+_MAIN_DECODE = "B=4 S=512 Hkv=32 G=1 D=128 kv{} cur_len=[144, 144, 144, 144]"
+_MAIN_DECODE_PAGED = ("B=4 pages of 64, 8/seq, Hkv=32 G=1 D=128 kv{} "
+                      "cur_len=[144, 144, 144, 144]")
 EARLIER_MS = {
+    "flash_decode " + _MAIN_DECODE.format(8): 0.0850,
+    "flash_decode " + _MAIN_DECODE.format(4): 0.0864,
+    "flash_decode_paged " + _MAIN_DECODE_PAGED.format(8): 0.0871,
+    "flash_decode_paged " + _MAIN_DECODE_PAGED.format(4): 0.0904,
     "dequant_matmul M=4 K=4096 N=11008 w4 g128": 0.3616,
     "flash_prefill " + _MAIN_PREFILL.format(8): 0.1794,
     "flash_prefill " + _MAIN_PREFILL.format(4): 0.2205,
@@ -338,18 +346,20 @@ def check_kernels(torch, timer, results) -> None:
                 main)
         del x, codes, packed, scale, zp, w, want, got
 
-    # ---- attention over the llama-7b cache: B 4, S 512, D 128
+    # ---- attention over the llama-7b cache: B 4, S 512, D 128, and one
+    # long context (S 2048, a 67 MB kv8 cache)
     b, s, d = 4, 512, 128
 
-    def cache(hkv, kv_bits):
+    def cache(hkv, kv_bits, s=s):
         return kv_cache_tensors(torch, gen, (b, s), hkv, d, kv_bits)
 
-    for hkv, gq, kv_bits, lens in ((32, 1, 8, (144, 144, 144, 144)),
-                                   (32, 1, 8, (0, 1, 257, 512)),
-                                   (32, 1, 16, (144, 144, 144, 144)),
-                                   (32, 1, 4, (144, 144, 144, 144)),
-                                   (8, 4, 8, (0, 31, 300, 512))):
-        kv = cache(hkv, kv_bits)
+    for hkv, gq, kv_bits, lens, s in ((32, 1, 8, (144, 144, 144, 144), 512),
+                                      (32, 1, 8, (0, 1, 257, 512), 512),
+                                      (32, 1, 16, (144, 144, 144, 144), 512),
+                                      (32, 1, 4, (144, 144, 144, 144), 512),
+                                      (8, 4, 8, (0, 31, 300, 512), 512),
+                                      (32, 1, 8, (2048,) * 4, 2048)):
+        kv = cache(hkv, kv_bits, s)
         q = randn(b, hkv, gq, d)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
         want = fd.flash_decode_plain(q, kv[0], kv[1], cur, kv[2], kv[3],
@@ -390,6 +400,7 @@ def check_kernels(torch, timer, results) -> None:
                     q, kv[0], kv[1], cur, kv[2], kv[3], block_kv=512), reps=5),
                 lib_ms, bms, by, "src/repro/kernels/flash_decode.py:129", main)
 
+    del kv, q, kf, vf, kt, vt
     c = 128
     for hkv, gq, kv_bits, offs, cls, sc in (
             (32, 1, 8, (0, 0, 0, 0), (128, 128, 128, 128), 128),
@@ -511,14 +522,15 @@ def check_paged_kernels(torch, timer, results) -> None:
     def sdpa_kv(lin):
         return tuple(t.transpose(1, 2) for t in dequant(lin))
 
-    for hkv, gq, kv_bits, ps, lens in (
-            (32, 1, 8, 64, (144, 144, 144, 144)),
-            (32, 1, 16, 64, (144, 144, 144, 144)),
-            (32, 1, 4, 64, (144, 144, 144, 144)),
-            (32, 1, 8, 64, (0, 1, 257, 512)),
-            (8, 4, 8, 64, (0, 31, 300, 512)),
-            (32, 1, 8, 16, (0, 17, 144, 512)),
-            (32, 1, 4, 16, (0, 17, 144, 512))):
+    for hkv, gq, kv_bits, ps, lens, max_len in (
+            (32, 1, 8, 64, (144, 144, 144, 144), 512),
+            (32, 1, 16, 64, (144, 144, 144, 144), 512),
+            (32, 1, 4, 64, (144, 144, 144, 144), 512),
+            (32, 1, 8, 64, (0, 1, 257, 512), 512),
+            (8, 4, 8, 64, (0, 31, 300, 512), 512),
+            (32, 1, 8, 16, (0, 17, 144, 512), 512),
+            (32, 1, 4, 16, (0, 17, 144, 512), 512),
+            (32, 1, 8, 64, (2048,) * 4, 2048)):
         max_pages = max_len // ps
         pools, pt, lin = paged_case(torch, gen, lens, hkv, d, ps, kv_bits,
                                     max_pages)
@@ -571,6 +583,8 @@ def check_paged_kernels(torch, timer, results) -> None:
                 lib_ms, bms, by, "src/repro/kernels/flash_decode.py:216",
                 main)
 
+    del pools, lin, q, kt, vt
+    max_len = 512
     c = 128
     for hkv, gq, kv_bits, ps, offs, cls in (
             (32, 1, 8, 64, (0, 0, 0, 0), (128, 128, 128, 128)),

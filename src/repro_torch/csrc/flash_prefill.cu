@@ -19,7 +19,7 @@
 //
 // The pinned arithmetic.  Every output row comes out of the same float
 // operations, in the same order, as the decode body (flash_common.cuh,
-// flash_rows) computes for that row: tiles of FLASH_T = 32 positions from
+// flash_decode.cu) computes for that row: tiles of FLASH_T = 32 positions from
 // position 0; the score is the fmaf chain over d = 0 .. D-1 from +0, then
 // times the scale; the tile's max and sum of p are the warp butterfly of
 // aq::flash_softmax; acc is scaled by the tile's correction, then the fmaf

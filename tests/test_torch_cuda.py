@@ -2,8 +2,8 @@
 
 Every test here needs a CUDA device and skips without one.  Shapes are
 small and ragged on purpose (M not a tile multiple, N not a multiple of
-64, K tails, G = 5 query heads per KV head, D = 32 and 128, pages of 8,
-16 and 64 so a 32-position tile spans pages or a page spans tiles) — the
+64, K tails, G = 5 query heads per KV head, D = 32, 72 and 128, pages of
+8, 16, 24 and 64 so a 32-position tile spans pages or a page spans tiles) — the
 full-width shapes run in ``chip_smoke.py``.  A paged kernel must equal its
 linear kernel bit for bit on the same contents.
 
@@ -352,6 +352,68 @@ def test_flash_decode_paged_kernel(dev, kv_bits, ps, g):
     assert _err(got, want) < 1e-5
     assert not got[0].any()
     assert torch.equal(got, flash_decode(q, lin[0], lin[1], cur, *lin[2:]))
+
+
+# Edges of the decode body: walks of up to 1024 positions (32 tiles) wrap
+# its staging ring several times; lengths on and beside tile edges; G = 5
+# (two row blocks per KV head); D = 72 (kv8 takes the value-by-value path,
+# kv16 16-byte copies of a head row that is no multiple of 16 values);
+# pages of 24, so a 32-position tile straddles a page boundary mid-tile.
+EDGE_LENS = [0, 1, 31, 32, 33, 500, 1024]
+
+
+@pytest.mark.parametrize("ps", [24, 64])
+@pytest.mark.parametrize("g", [1, 5])
+@pytest.mark.parametrize("kv_bits,d", [(16, 128), (8, 128), (4, 128),
+                                       (16, 72), (8, 72)])
+def test_flash_decode_long_walks_and_edges(dev, kv_bits, d, g, ps):
+    """Within 1e-5 of the plain version, the paged kernel equal to the
+    linear one, and a one-token prefill chunk equal to decode in both
+    layouts, all bit for bit."""
+    rng = np.random.default_rng(50 + kv_bits + d + g + ps)
+    hkv, b = 2, len(EDGE_LENS)
+    pools, pt, lin = _paged_case(rng, EDGE_LENS, hkv, d, ps, kv_bits,
+                                 -(-1024 // ps), dev)
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(EDGE_LENS, dtype=torch.int32, device=dev)
+    got = flash_decode(q, lin[0], lin[1], cur, *lin[2:])
+    want = flash_decode_plain(q, lin[0], lin[1], cur, *lin[2:], block_kv=ps)
+    assert _err(got, want) < 1e-5
+    assert not got[0].any()
+    assert torch.equal(flash_decode_paged(q, pools[0], pools[1], pt, cur,
+                                          *pools[2:]), got)
+    q4 = q.reshape(b, 1, hkv * g, d)
+    off, one = torch.clamp(cur - 1, min=0), (cur > 0).to(torch.int32)
+    for table, cache in ((None, lin), (pt, pools)):
+        assert torch.equal(
+            ops.flash_decode(q4, cache, cur, page_table=table),
+            ops.flash_prefill(q4, cache, off, one, page_table=table))
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("g", [2, 5])
+def test_flash_decode_rows_per_block(dev, kv_bits, g):
+    """With enough (batch, kv-head) pairs (4 x 36) the decode kernel folds
+    2 or 4 query heads into a block; each row equals the same row computed
+    one row a block (a 2-head slice of the same cache), bit for bit, and
+    the paged kernel equals the linear one."""
+    rng = np.random.default_rng(70 + kv_bits + g)
+    hkv, d, ps = 36, 128, 32
+    lens = [0, 33, 100, 257]
+    pools, pt, lin = _paged_case(rng, lens, hkv, d, ps, kv_bits, 9, dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_decode(q, lin[0], lin[1], cur, *lin[2:])
+    want = flash_decode_plain(q, lin[0], lin[1], cur, *lin[2:], block_kv=ps)
+    assert _err(got, want) < 1e-5
+    assert torch.equal(flash_decode_paged(q, pools[0], pools[1], pt, cur,
+                                          *pools[2:]), got)
+    part = [t[:, :, :2].contiguous() for t in lin]
+    one_row = flash_decode(q[:, :2].contiguous(), part[0], part[1], cur,
+                           *part[2:])
+    assert torch.equal(one_row, got[:, :2])
 
 
 @pytest.mark.parametrize("kv_bits", [16, 8, 4])
