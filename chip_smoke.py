@@ -16,12 +16,18 @@ failure raises (exit code != 0).
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type).  Times are CUDA-event medians with the 50 MB L2 flushed
    before every launch, since the serving path finds each weight cold.
+   A call whose host enqueue outlasts the flush is timed with the card
+   waiting for it; for w4a8_matmul the log line also gives the time with
+   the enqueue hidden behind a device sleep (the call's device work alone)
+   and the host's enqueue per call.
    Each paged kernel must equal its linear kernel bit for bit on the same
    contents, a one-token chunk must equal decode, and a chunk split in two
    must equal the whole chunk, in every format and both layouts;
-   dequant_matmul's rows must be the same at M = 4 as in the M = 512
-   product.  Where PERF.md records the time of a case before its kernel
-   was redesigned, the log line shows it beside the new one.
+   w4a8_matmul must equal its plain version bit for bit at the four
+   llama-7b linear shapes, and its rows and dequant_matmul's must be the
+   same at M = 4 as in the M = 512 product.  Where PERF.md records the
+   time of a case before its kernel was redesigned, the log line shows it
+   beside the new one.
    int8_matmul and w8a8_matmul at the four llama-7b linear shapes, and
    quantize_pack at the llama-7b weight shapes (w4 g128 both ways, w2, w8
    and per-channel w4), must equal their plain versions bit for bit.
@@ -100,6 +106,10 @@ EARLIER_MS = {
     "flash_decode_paged " + _MAIN_DECODE_PAGED.format(8): 0.0871,
     "flash_decode_paged " + _MAIN_DECODE_PAGED.format(4): 0.0904,
     "dequant_matmul M=4 K=4096 N=11008 w4 g128": 0.3616,
+    "w4a8_matmul M=4 K=4096 N=4096 w4 g128 a4": 0.0803,
+    "w4a8_matmul M=4 K=4096 N=11008 w4 g128 a4": 0.0829,
+    "w4a8_matmul M=4 K=11008 N=4096 w4 g128 a4": 0.2104,
+    "w4a8_matmul M=512 K=4096 N=11008 w4 g128 a4": 1.1112,
     "flash_prefill " + _MAIN_PREFILL.format(8): 0.1794,
     "flash_prefill " + _MAIN_PREFILL.format(4): 0.2205,
     "flash_prefill_paged " + _MAIN_PAGED.format(8): 0.1859,
@@ -118,26 +128,39 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 class Timer:
-    """Median CUDA-event time of one call, L2 flushed before each."""
+    """Median CUDA-event time of one call, L2 flushed before each.  With
+    hide_host, a device sleep between the flush and the call keeps the card
+    busy while the host enqueues the call, so the events time the call's
+    device work alone.  ``host_ms``: the median host time of the last
+    timing's calls (their enqueue: nothing in them synchronizes)."""
+
+    HIDE_CYCLES = 300_000          # ~0.17 ms at the H100's 1.755 GHz
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.host_ms = None
 
-    def __call__(self, fn, reps: int = 15, warm: int = 2) -> float:
+    def __call__(self, fn, reps: int = 15, warm: int = 2,
+                 hide_host: bool = False) -> float:
         torch = self.torch
         for _ in range(warm):
             fn()
-        pairs = []
+        pairs, host = [], []
         for _ in range(reps):
             self.flush.zero_()
+            if hide_host:
+                torch.cuda._sleep(self.HIDE_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
+            t0 = time.perf_counter()
             fn()
+            host.append(time.perf_counter() - t0)
             e.record()
             pairs.append((s, e))
         torch.cuda.synchronize()
+        self.host_ms = statistics.median(host) * 1e3
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
@@ -309,17 +332,32 @@ def check_kernels(torch, timer, results) -> None:
                                      group_size=g, a_bits=4)
         got = i8.w4a8_matmul(x, packed, scale, zp, bits=bits, group_size=g,
                              a_bits=4)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = 1e-6 * want.abs().max().item()
+        _require_equal(torch, "w4a8_matmul", case + " a4", got, want)
+        if m > 4:
+            # rows do not depend on M: decode body (M = 4) vs tile body
+            if not torch.equal(i8.w4a8_matmul(x[:4], packed, scale, zp,
+                                              bits=bits, group_size=g,
+                                              a_bits=4), got[:4]):
+                raise RuntimeError(f"w4a8_matmul {k}->{n}: rows at M=4 "
+                                   f"differ from the same rows at M={m}")
+            log(f"[kernel] w4a8_matmul {k}->{n}: rows at M=4 equal the "
+                f"first 4 rows at M={m} (bit-equal)")
         bms, by = bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
-        _record(results, "w4a8_matmul", case + " a4", err, tol,
-                timer(lambda: i8.w4a8_matmul(x, packed, scale, zp, bits=bits,
-                                             group_size=g, a_bits=4)),
+        def call():
+            i8.w4a8_matmul(x, packed, scale, zp, bits=bits, group_size=g,
+                           a_bits=4)
+        dev_ms = timer(call, hide_host=True)
+        ms = timer(call)
+        host_ms = timer.host_ms
+        _record(results, "w4a8_matmul", case + " a4", 0.0, 0.0, ms,
                 timer(lambda: i8.quant_matmul_plain(
                     x, packed, scale, zp, bits=bits, group_size=g, a_bits=4),
                     reps=5),
                 lib_ms, bms, by, "src/repro/kernels/int8_matmul.py:188", main)
+        log(f"[kernel] w4a8_matmul {case} a4: {ms / lib_ms:.3f}x the time of "
+            f"torch.matmul ({'faster' if ms < lib_ms else 'SLOWER'}); "
+            f"device work alone {dev_ms:.4f} ms, host enqueue "
+            f"{host_ms:.4f} ms a call")
 
         want = dq.dequant_matmul_plain(x, packed, scale, zp, bits=bits,
                                        group_size=g)

@@ -5,6 +5,14 @@
 ``device``.  A packed weight is recognised by its ``packed``, ``scale``,
 ``zp``, ``bits`` and ``group_size`` attributes and becomes a
 :class:`QTensor`, so both frameworks compute on identical codes.
+
+Every leaf crosses byte for byte.  numpy has no bfloat16 of its own: the
+reference's bf16 leaves (the default dtype of its full-size configs, and a
+kv4 cache's scales) are ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` refuses.  Such a leaf is recognised by its dtype's
+name, viewed as ``uint16`` and reinterpreted as ``torch.bfloat16``, so the
+port needs no ``ml_dtypes``; every other dtype goes through
+``torch.from_numpy`` as it is.
 """
 from __future__ import annotations
 
@@ -17,7 +25,11 @@ _QT_FIELDS = ("packed", "scale", "zp", "bits", "group_size")
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a.view(np.uint16), copy=True)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def from_jax_params(tree, device="cpu"):

@@ -1,5 +1,6 @@
-// Shared helpers of the matmul kernels: the packed-code loaders and the
-// whole-row activation pre-pass of w4a8_matmul and w8a8_matmul.
+// Shared helpers of the matmul kernels: the packed-code loaders, the 4x4
+// byte transpose and the whole-row activation pre-pass of w4a8_matmul and
+// w8a8_matmul.
 //
 // Packed layout (repro_torch/core/packing.py): the 8 codes of K rows
 // 8u .. 8u+7 of column n sit little-endian in the BITS bytes
@@ -28,6 +29,19 @@ __device__ __forceinline__ int unit_code(uint64_t lane, int j) {
   return (int)((lane >> (j * BITS)) & ((1u << BITS) - 1u));
 }
 
+// Four row words (byte j = column j) -> four column words (byte i = row i).
+__device__ __forceinline__ void transpose4x4(const uint32_t r[4],
+                                             uint32_t c[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
 constexpr int ACT_THREADS = 256;
 
 // Internal linkage: each source that includes this header gets its own copy.
@@ -38,15 +52,19 @@ namespace {
 // a_scale = max(bound, 1e-8) / qmax (IEEE division); the codes
 // clip(rint(x / a_scale), -qmax - 1, qmax) (round half to even) go to xq
 // (M, K) int8.  With rsum != nullptr the per-group row sums of the codes go
-// to rsum (M, K / group) int32.
+// to rsum (M, K / group) int32.  Block 0 also zeroes the nzero words of
+// `zero` (the next launch's counters; nullptr and 0 when it has none).
 __global__ void __launch_bounds__(ACT_THREADS)
 act_quant_kernel(const float* __restrict__ x, int8_t* __restrict__ xq,
                  float* __restrict__ a_scale, int* __restrict__ rsum, int K,
-                 int group, float qmax) {
+                 int group, float qmax, unsigned* __restrict__ zero,
+                 int nzero) {
   __shared__ float red[ACT_THREADS / 32];
   __shared__ int red_nan[ACT_THREADS / 32];
   __shared__ float s_scale;
   const int m = blockIdx.x, tid = threadIdx.x;
+  if (m == 0)
+    for (int i = tid; i < nzero; i += ACT_THREADS) zero[i] = 0u;
   const float* xr = x + (long long)m * K;
   float mx = 0.f;
   int has_nan = 0;

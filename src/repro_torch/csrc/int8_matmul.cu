@@ -23,8 +23,9 @@
 //    are issued before the current slab's MMAs (register staging).  The
 //    MMA's B operand wants 4 consecutive K bytes of one column per
 //    register while w_q is row-major, so each thread transposes 4x4 byte
-//    blocks with __byte_perm on the way into shared memory.  Rows are
-//    padded to 80 bytes, which makes the fragment loads conflict-free.
+//    blocks with __byte_perm (aq::transpose4x4) on the way into shared
+//    memory.  Rows are padded to 80 bytes, which makes the fragment loads
+//    conflict-free.
 //  * int8_decode (M <= 8): no tile reuse, so the weight stream is all that
 //    counts, and it needs many loads in flight.  A block owns 32 columns
 //    and 512 rows of K (a split of K); each thread takes 4 columns (one
@@ -86,19 +87,6 @@ __device__ __forceinline__ uint32_t load_row4(const int8_t* __restrict__ x,
   return v;
 }
 
-// Four row words (byte j = column j) -> four column words (byte i = row i).
-__device__ __forceinline__ void transpose4x4(const uint32_t r[4],
-                                             uint32_t c[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
-}
-
 __device__ __forceinline__ float epilogue(int acc, float xs, float ws) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
 }
@@ -127,7 +115,7 @@ int8_decode_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
 #pragma unroll
   for (int u = 0; u < DEC_UNROLL; ++u) {
     uint32_t c[4];
-    transpose4x4(r[u], c);
+    aq::transpose4x4(r[u], c);
 #pragma unroll
     for (int m = 0; m < DEC_MMAX; ++m) {
       if (m < M) {
@@ -214,7 +202,7 @@ __device__ __forceinline__ void store_stage(const Stage& st, int8_t* As,
     const int blk = threadIdx.x + THREADS * i, l = blk % 32, wid = blk / 32;
     const int kq = l % 4 + 4 * (wid % 4), nq = l / 4 + 8 * (wid / 4);
     uint32_t col[4];
-    transpose4x4(st.b[i], col);
+    aq::transpose4x4(st.b[i], col);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<uint32_t*>(Bs + (4 * nq + j) * LDS + 4 * kq) = col[j];
@@ -335,7 +323,7 @@ extern "C" int aq_w8a8_matmul(const float* x, int8_t* xq, float* x_scale,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   aq::act_quant_kernel<<<M, aq::ACT_THREADS, 0, s>>>(x, xq, x_scale, nullptr,
-                                                     K, K, 127.f);
+                                                     K, K, 127.f, nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_int8(xq, x_scale, wq, w_scale, y, part, M, K, N, s);

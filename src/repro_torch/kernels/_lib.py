@@ -41,12 +41,15 @@ LAUNCHES = {"dequant_matmul": 0, "w4a8_matmul": 0, "flash_decode": 0,
 BUILD_INFO: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, packed, scale, zp, out, workspace, M, K, N, bits, group, stream
     "aq_dequant_matmul": [_P] * 6 + [_I] * 5 + [_P],
-    # x, xq, a_scale, rsum, packed, scale, zp, out, M, K, N, bits, group,
-    # a_bits, stream
-    "aq_w4a8_matmul": [_P] * 8 + [_I] * 6 + [_P],
+    # x, workspace, workspace bytes, packed, scale, zp, out, M, K, N, bits,
+    # group, a_bits, stream
+    "aq_w4a8_matmul": [_P, _P, _L] + [_P] * 4 + [_I] * 6 + [_P],
+    # M, K, N, group -> the bytes of aq_w4a8_matmul's workspace
+    "aq_w4a8_workspace_bytes": [_I] * 4,
     # The flash entries take the cache format as kv_bits: 16, 8 or 4.
     # q, k, v, k_scale, v_scale, cur_len, out, B, S, Hkv, G, D, scale,
     # kv_bits, stream
@@ -151,7 +154,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _L if name.endswith("_bytes") else ctypes.c_int
         _LIB = handle
     return _LIB
 

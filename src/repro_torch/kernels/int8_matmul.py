@@ -8,7 +8,9 @@ codes with one whole-row scale, weight codes centred by
 small integers, exact far past any group length here, since CUDA has no
 int32 matmul), and the float32 epilogue in the reference's op order.
 ``w4a8_matmul`` runs it for CPU tensors and launches
-``csrc/w4a8_matmul.cu`` for CUDA tensors.
+``csrc/w4a8_matmul.cu`` for CUDA tensors, bit-equal to it in both of its
+bodies (decode M <= 8, tensor-core tile M > 8), so a row of y is the same at
+every M.
 
 ``int8_matmul_plain`` and ``w8a8_dynamic_plain`` are the reference's
 ``int8_matmul_ref`` and ``w8a8_dynamic_ref``: int8 codes times int8
@@ -24,6 +26,8 @@ division by a Python number into a multiply by its reciprocal, which is
 not the IEEE quotient the reference and the kernels compute.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -80,16 +84,22 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"a_bits={a_bits}: the kernel takes 2..8")
     m, k = x.shape
     n = packed.shape[-1]
-    dev = x.device
-    x_q = torch.empty((m, k), dtype=torch.int8, device=dev)
-    a_scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    rsum = torch.empty((m, k // g), dtype=torch.int32, device=dev)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
-    _lib.launch("w4a8_matmul", x.data_ptr(), x_q.data_ptr(),
-                a_scale.data_ptr(), rsum.data_ptr(), packed.data_ptr(),
-                scale.data_ptr(), zp.data_ptr(), y.data_ptr(), m, k, n, bits,
-                g, a_bits)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    nbytes = _w4a8_workspace_bytes(m, k, n, g)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    _lib.launch("w4a8_matmul", x.data_ptr(), ws.data_ptr(), nbytes,
+                packed.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+                y.data_ptr(), m, k, n, bits, g, a_bits)
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _w4a8_workspace_bytes(m: int, k: int, n: int, g: int) -> int:
+    """The bytes of w4a8_matmul's workspace, as its C entry lays it out
+    (csrc/w4a8_matmul.cu: carve)."""
+    return _lib.lib().aq_w4a8_workspace_bytes(m, k, n, g)
 
 
 # The kernel's decode body (M <= DECODE_M) splits K into pieces of

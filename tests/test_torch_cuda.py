@@ -8,8 +8,9 @@ full-width shapes run in ``chip_smoke.py``.  A paged kernel must equal its
 linear kernel bit for bit on the same contents.
 
 Tolerances: w4a8_matmul has an exact integer dot and the plain version's
-float32 epilogue, so it must agree to 1e-6 of the output's magnitude
-(bit-equal in practice); dequant_matmul and the attention kernels sum in
+float32 epilogue in the same order, so it must equal the plain version bit
+for bit (``torch.equal``) in both bodies, and its rows are the same at every
+M; dequant_matmul and the attention kernels sum in
 another order than the plain version: 1e-5 of the output's magnitude, and
 each pins its own order: a one-token prefill chunk equals decode, a chunk
 split in two equals the whole, and dequant_matmul's rows are the same at
@@ -114,25 +115,58 @@ def test_dequant_matmul_nan_row_stays_in_its_row(dev):
         assert torch.isfinite(y[[0, 1, 2, 4]]).all()
 
 
+# Every route of both bodies: decode M 1..8 (its 1/2/4/8-row variants) and
+# the tensor-core tile past 8; K with many groups (the decode grid's group
+# runs, 2816 = 22 groups of 128) and one K-wide group (g 0, walked in
+# chunks); groups of 8 and 24 (an MMA step meets several groups; 2-bit
+# quads straddle two groups); K tails inside a 32-deep step; N not a
+# multiple of 16 or 64 (byte loads).
+W4A8_SHAPES = SHAPES + [
+    (8, 2816, 200, 4, 128), (9, 2816, 136, 4, 128), (4, 2816, 96, 2, 32),
+    (70, 520, 96, 4, 8), (5, 1024, 72, 2, 8), (70, 384, 72, 2, 24),
+    (4, 768, 130, 2, 24), (2, 4096, 64, 4, 0), (70, 640, 80, 8, 32),
+    (3, 640, 80, 8, 32), (1, 1000, 144, 8, 0), (9, 1000, 40, 2, 0)]
+
+
 @pytest.mark.parametrize("a_bits", [4, 8])
-@pytest.mark.parametrize("m,k,n,bits,g", SHAPES)
+@pytest.mark.parametrize("m,k,n,bits,g", W4A8_SHAPES)
 def test_w4a8_matmul_kernel(dev, m, k, n, bits, g, a_bits):
     rng = np.random.default_rng(m + k + a_bits)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
     w = _weight(rng, k, n, bits, g, dev)
     got = w4a8_matmul(x, *w, bits=bits, group_size=g, a_bits=a_bits)
     want = quant_matmul_plain(x, *w, bits=bits, group_size=g, a_bits=a_bits)
-    assert _err(got, want) < 1e-6
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n,g", SPLIT_SHAPES)
+def test_w4a8_matmul_rows_equal_across_m(dev, bits, k, n, g):
+    """A row of y is the same bit for bit at every M and in both bodies
+    (decode M <= 8, tile M > 8): the first rows of an M = 70 product equal
+    the same rows run at M = 1, 4 and 8."""
+    rng = np.random.default_rng(bits + k + n + g + 1)
+    x = torch.from_numpy(rng.standard_normal((70, k)).astype(np.float32)).to(dev)
+    w = _weight(rng, k, n, bits, g, dev)
+    full = w4a8_matmul(x, *w, bits=bits, group_size=g, a_bits=4)
+    assert torch.equal(full, quant_matmul_plain(x, *w, bits=bits,
+                                                group_size=g, a_bits=4))
+    for m in (1, 4, 8):
+        assert torch.equal(w4a8_matmul(x[:m], *w, bits=bits, group_size=g,
+                                       a_bits=4), full[:m])
 
 
 def test_w4a8_matmul_nan_row_stays_in_its_row(dev):
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((5, 256)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((12, 256)).astype(np.float32)).to(dev)
     x[2, 17] = float("nan")
     w = _weight(rng, 256, 64, 4, 64, dev)
-    y = w4a8_matmul(x, *w, bits=4, group_size=64, a_bits=4)
-    assert torch.isnan(y[2]).all()
-    assert torch.isfinite(y[[0, 1, 3, 4]]).all()
+    for rows in (slice(0, 5), slice(0, 12)):          # decode and tile bodies
+        y = w4a8_matmul(x[rows].contiguous(), *w, bits=4, group_size=64,
+                        a_bits=4)
+        assert torch.isnan(y[2]).all()
+        assert torch.isfinite(y[[0, 1, 3, 4]]).all()
 
 
 # (M, K, N): decode-shaped (M <= 8) and tile-shaped M, ragged in all three
