@@ -6,7 +6,8 @@ Runs from the root of a checkout, on one CUDA device, in phases; any
 failure raises (exit code != 0).
 
 1. build: the CUDA kernels of ``src/repro_torch/csrc`` are built from
-   source (one nvcc per file, in parallel) and loaded.
+   source (one nvcc per file, in parallel) and loaded; the SASS of the
+   int8 tile body must hold TMA loads, mbarrier waits and wgmma.
 2. kernels: each kernel against its plain PyTorch version at the llama-7b
    shapes the serving path gives it (plus kv16/kv8/kv4, GQA, ragged-length
    and page-16 cases, and decode over a 2048-position context in both
@@ -17,10 +18,11 @@ failure raises (exit code != 0).
    their type).  Times are CUDA-event medians with the 50 MB L2 flushed
    before every launch, since the serving path finds each weight cold.
    A call whose host enqueue outlasts the flush is timed with the card
-   waiting for it; for w4a8_matmul the log line also gives the time with
-   the enqueue hidden behind a device sleep (the call's device work alone)
-   and the host's enqueue per call.
-   Each paged kernel must equal its linear kernel bit for bit on the same
+   waiting for it; for w4a8_matmul, int8_matmul and w8a8_matmul the log
+   line also gives the time with the enqueue hidden behind a device sleep
+   (the call's device work alone) and the host's enqueue per call; for
+   the int8 pair also the device work alone after a flush that leaves the
+   L2 clean.  Each paged kernel must equal its linear kernel bit for bit on the same
    contents, a one-token chunk must equal decode, and a chunk split in two
    must equal the whole chunk, in every format and both layouts;
    w4a8_matmul must equal its plain version bit for bit at the four
@@ -28,9 +30,12 @@ failure raises (exit code != 0).
    same at M = 4 as in the M = 512 product.  Where PERF.md records the
    time of a case before its kernel was redesigned, the log line shows it
    beside the new one.
-   int8_matmul and w8a8_matmul at the four llama-7b linear shapes, and
-   quantize_pack at the llama-7b weight shapes (w4 g128 both ways, w2, w8
-   and per-channel w4), must equal their plain versions bit for bit.
+   int8_matmul and w8a8_matmul at the four llama-7b linear shapes and the
+   512-token 4096 -> 4096 product, and quantize_pack at the llama-7b weight
+   shapes (w4 g128 both ways, w2, w8 and per-channel w4), must equal their
+   plain versions bit for bit; the int8 pair's rows at M = 4 must equal
+   the same rows at M = 512, and each log line names the body of
+   csrc/int8_matmul.cu that ran (decode, wgmma or mma_sync).
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -55,7 +60,9 @@ failure raises (exit code != 0).
    packed bytes, scales and zero points (224 launches); ``wq`` and ``w_up``
    as symmetric per-channel int8 codes go through ``ops.w8a8_matmul`` and
    ``int8_matmul`` at M = 4 and 512 on phase 3's prompt embeddings, bit for
-   bit against the plain version.
+   bit against the plain version; then one call of each at each M under
+   torch.profiler must run one kernel (int8_matmul) or two (w8a8_matmul:
+   the pre-pass and the product).
 8. summary.  Every kernel's ``launches`` is the count of the runs above
    that drive the main path (phases 3-6 for the six serving kernels, phase
    7 for the other three), never of the comparisons of phase 2.
@@ -67,6 +74,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -114,6 +122,15 @@ EARLIER_MS = {
     "flash_prefill " + _MAIN_PREFILL.format(4): 0.2205,
     "flash_prefill_paged " + _MAIN_PAGED.format(8): 0.1859,
     "flash_prefill_paged " + _MAIN_PAGED.format(4): 0.2639,
+    # the earlier int8 bodies (mma.sync tile, split-K dp4a decode)
+    "int8_matmul M=4 K=4096 N=4096": 0.0243,
+    "int8_matmul M=4 K=4096 N=11008": 0.0445,
+    "int8_matmul M=4 K=11008 N=4096": 0.0610,
+    "int8_matmul M=512 K=4096 N=11008": 0.2078,
+    "w8a8_matmul M=4 K=4096 N=4096": 0.0389,
+    "w8a8_matmul M=4 K=4096 N=11008": 0.0520,
+    "w8a8_matmul M=4 K=11008 N=4096": 0.0582,
+    "w8a8_matmul M=512 K=4096 N=11008": 0.2173,
 }
 
 
@@ -131,8 +148,10 @@ class Timer:
     """Median CUDA-event time of one call, L2 flushed before each.  With
     hide_host, a device sleep between the flush and the call keeps the card
     busy while the host enqueues the call, so the events time the call's
-    device work alone.  ``host_ms``: the median host time of the last
-    timing's calls (their enqueue: nothing in them synchronizes)."""
+    device work alone.  With clean_l2, the flush buffer is also read back
+    before the call, so the L2 holds no dirty lines for the call to write
+    back.  ``host_ms``: the median host time of the last timing's calls
+    (their enqueue: nothing in them synchronizes)."""
 
     HIDE_CYCLES = 300_000          # ~0.17 ms at the H100's 1.755 GHz
 
@@ -142,13 +161,15 @@ class Timer:
         self.host_ms = None
 
     def __call__(self, fn, reps: int = 15, warm: int = 2,
-                 hide_host: bool = False) -> float:
+                 hide_host: bool = False, clean_l2: bool = False) -> float:
         torch = self.torch
         for _ in range(warm):
             fn()
         pairs, host = [], []
         for _ in range(reps):
             self.flush.zero_()
+            if clean_l2:
+                self.flush.max()
             if hide_host:
                 torch.cuda._sleep(self.HIDE_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
@@ -194,6 +215,8 @@ def main() -> None:
         for line in Path(log_path).read_text().splitlines():
             if "registers" in line or "spill stores" in line:
                 log("[build]   " + line.strip())
+
+    check_wgmma_sass(_lib)
 
     timer = Timer(torch)
     check_kernels(torch, timer, results)
@@ -244,6 +267,24 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def check_wgmma_sass(_lib) -> None:
+    """The int8 tile body must be compiled to Hopper's asynchronous pipeline:
+    its SASS (cuobjdump, beside nvcc) holds TMA loads (UTMALDG), mbarrier
+    waits (SYNCS) and warpgroup MMAs (IGMMA or HGMMA)."""
+    cuobjdump = Path(_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", _lib.BUILD_INFO["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if "int8_wgmma_kernel" in part.splitlines()[0]), None)
+    if body is None:
+        raise RuntimeError("chip_smoke: int8_wgmma_kernel not in the library")
+    counts = {op: body.count(op) for op in ("UTMALDG", "SYNCS", "GMMA")}
+    log(f"[build] int8_wgmma_kernel SASS: {counts}")
+    if not all(counts.values()):
+        raise RuntimeError(f"int8_wgmma_kernel lacks TMA / mbarrier / wgmma "
+                           f"instructions: {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -711,15 +752,19 @@ def _require_equal(torch, name, case, got, want) -> None:
 
 
 def check_int8_kernels(torch, timer, results) -> None:
-    """int8_matmul and w8a8_matmul at llama-7b's linear shapes on seeded
-    int8 codes and positive per-channel scales, each bit-equal to its
-    plain version.  Library yardstick: torch.matmul on the float32
-    operands with the scales folded in (and torch._int_mm at M = 512,
-    logged)."""
+    """int8_matmul and w8a8_matmul at llama-7b's linear shapes and the
+    512-token 4096 -> 4096 prefill on seeded int8 codes and positive
+    per-channel scales, each bit-equal to its plain version, and rows at
+    M = 4 (decode body) bit-equal to the same rows at M = 512 (wgmma body).
+    Each log line names the body that ran, the time PERF.md recorded for
+    the earlier body, the device work alone (also with the L2 left clean)
+    and the host enqueue per call.
+    Library yardstick: torch.matmul on the float32 operands with the
+    scales folded in (and torch._int_mm at M = 512, logged)."""
     from repro_torch.kernels import int8_matmul as i8
     gen = torch.Generator(device="cuda").manual_seed(2)
     dev = "cuda"
-    for m, k, n in LINEAR_SHAPES:
+    for m, k, n in LINEAR_SHAPES + ((512, 4096, 4096),):
         x = torch.randn((m, k), generator=gen, device=dev)
         x_q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
                             dtype=torch.int8)
@@ -732,33 +777,50 @@ def check_int8_kernels(torch, timer, results) -> None:
         case = f"M={m} K={k} N={n}"
         main = (m, k, n) == (4, 4096, 11008)
         n_ops = 2 * m * k * n
-
-        _require_equal(torch, "int8_matmul", case,
-                       i8.int8_matmul(x_q, x_scale, w_q, w_scale),
-                       i8.int8_matmul_plain(x_q, x_scale, w_q, w_scale))
-        bms, by = bound(m * k + 4 * m + k * n + 4 * n + 4 * m * n, n_ops,
-                        INT8_OPS_PER_S)
-        _record(results, "int8_matmul", case, 0.0, 0.0,
-                timer(lambda: i8.int8_matmul(x_q, x_scale, w_q, w_scale)),
-                timer(lambda: i8.int8_matmul_plain(x_q, x_scale, w_q,
-                                                   w_scale), reps=5),
-                timer(lambda: torch.matmul(x_f, w_f)), bms, by,
-                "src/repro/kernels/int8_matmul.py:58", main)
-        if m > 16:
-            log(f"[kernel] int8_matmul {case}: torch._int_mm (int32 "
-                f"product only) "
-                f"{timer(lambda: torch._int_mm(x_q, w_q)):.4f} ms")
-
-        _require_equal(torch, "w8a8_matmul", case,
-                       i8.w8a8_matmul(x, w_q, w_scale),
-                       i8.w8a8_dynamic_plain(x, w_q, w_scale))
-        bms, by = bound(4 * m * k + k * n + 4 * n + 4 * m * n, n_ops,
-                        INT8_OPS_PER_S)
-        _record(results, "w8a8_matmul", case, 0.0, 0.0,
-                timer(lambda: i8.w8a8_matmul(x, w_q, w_scale)),
-                timer(lambda: i8.w8a8_dynamic_plain(x, w_q, w_scale), reps=5),
-                timer(lambda: torch.matmul(x, w_f)), bms, by,
-                "src/repro/kernels/int8_matmul.py:111", main)
+        int_mm_ms = (timer(lambda: torch._int_mm(x_q, w_q)) if m > 16
+                     else None)
+        for name, call, plain, lib_call, nbytes, body in (
+                ("int8_matmul",
+                 lambda: i8.int8_matmul(x_q, x_scale, w_q, w_scale),
+                 lambda: i8.int8_matmul_plain(x_q, x_scale, w_q, w_scale),
+                 lambda: torch.matmul(x_f, w_f),
+                 m * k + 4 * m + k * n + 4 * n + 4 * m * n,
+                 i8.int8_body(x_q, w_q)),
+                ("w8a8_matmul",
+                 lambda: i8.w8a8_matmul(x, w_q, w_scale),
+                 lambda: i8.w8a8_dynamic_plain(x, w_q, w_scale),
+                 lambda: torch.matmul(x, w_f),
+                 4 * m * k + k * n + 4 * n + 4 * m * n,
+                 i8.w8a8_body(x, w_q))):
+            got = call()
+            _require_equal(torch, name, case, got, plain())
+            if m > 4:
+                # rows do not depend on M: decode body (M = 4) vs this one
+                if name == "int8_matmul":
+                    four = i8.int8_matmul(x_q[:4], x_scale[:4], w_q, w_scale)
+                else:
+                    four = i8.w8a8_matmul(x[:4], w_q, w_scale)
+                _require_equal(torch, name, f"{case} rows 0-3 at M=4",
+                               four, got[:4])
+                log(f"[kernel] {name} {k}->{n}: rows at M=4 equal the first "
+                    f"4 rows at M={m} (bit-equal)")
+            bms, by = bound(nbytes, n_ops, INT8_OPS_PER_S)
+            lib_ms = timer(lib_call)
+            dev_ms = timer(call, hide_host=True)
+            clean_ms = timer(call, hide_host=True, clean_l2=True)
+            ms = timer(call)
+            host_ms = timer.host_ms
+            _record(results, name, case, 0.0, 0.0, ms,
+                    timer(plain, reps=5), lib_ms, bms, by,
+                    "src/repro/kernels/int8_matmul.py:"
+                    + ("58" if name == "int8_matmul" else "111"), main)
+            vs = f"{ms / lib_ms:.3f}x the time of torch.matmul"
+            if int_mm_ms is not None:
+                vs += (f", {ms / int_mm_ms:.3f}x torch._int_mm's "
+                       f"{int_mm_ms:.4f} ms (int32 product only)")
+            log(f"[kernel] {name} {case}: {body} body; {vs}; device work "
+                f"alone {dev_ms:.4f} ms ({clean_ms:.4f} ms after a read-only "
+                f"flush), host enqueue {host_ms:.4f} ms a call")
         del x, x_q, x_scale, w_q, w_scale, w_f, x_f
 
 
@@ -1152,6 +1214,18 @@ def serve_kv4(torch, params) -> dict:
 # 7. the three kernels no serving path runs, over the served tree
 # ---------------------------------------------------------------------------
 
+def device_kernels(torch, fn) -> list:
+    """The names of the device kernels one call of ``fn`` runs
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def repack(torch, params, prompts) -> dict:
     """Phase 7 (see the module docstring); returns its launch counts."""
     from repro_torch.configs import get_config
@@ -1206,6 +1280,7 @@ def repack(torch, params, prompts) -> dict:
                                        f"{name} at M={x2.shape[0]} differ "
                                        f"from the plain version")
                 n_matmul += 1
+                probe = (w_q, w_scale)
         del block, linears
     torch.cuda.synchronize()
     counts = dict(_lib.LAUNCHES)
@@ -1217,6 +1292,24 @@ def repack(torch, params, prompts) -> dict:
     for name in ("quantize_pack", "w8a8_matmul", "int8_matmul"):
         if counts[name] <= 0:
             raise RuntimeError(f"repack: {name} was never launched")
+    # device kernels of one call of each entry, after the counts are read
+    w_q, w_scale = probe
+    for xa in acts:
+        x_q, x_scale = i8.act_quant_plain(xa.reshape(-1, xa.shape[-1]), 8)
+        x_q = x_q.to(torch.int8)
+        for name, fn, want in (
+                ("w8a8_matmul", lambda: ops.w8a8_matmul(xa, w_q, w_scale), 2),
+                ("int8_matmul",
+                 lambda: i8.int8_matmul(x_q, x_scale, w_q, w_scale), 1)):
+            names = device_kernels(torch, fn)
+            ours = [re.search(r"\w+_kernel", k).group(0) for k in names
+                    if re.search(r"int8_\w+_kernel|act_quant_kernel", k)]
+            log(f"[repack] {name} at M={x_q.shape[0]}: {len(ours)} launch(es) "
+                f"a call ({', '.join(ours)}); other device work: "
+                f"{len(names) - len(ours)} kernel(s)")
+            if len(ours) != want:
+                raise RuntimeError(f"repack: {name} launched {len(ours)} "
+                                   f"kernels a call, not {want}")
     del x, acts
     torch.cuda.empty_cache()
     return counts

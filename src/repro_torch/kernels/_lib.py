@@ -63,10 +63,15 @@ _SIGNATURES = {
     # q, k, v, k_scale, v_scale, page_table, offset, chunk_len, out, B,
     # page, max_pages, Hkv, C, G, D, scale, kv_bits, stream
     "aq_flash_prefill_paged": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
-    # x_q, x_scale, w_q, w_scale, out, workspace, M, K, N, stream
-    "aq_int8_matmul": [_P] * 6 + [_I] * 3 + [_P],
-    # x, x_q, x_scale, w_q, w_scale, out, workspace, M, K, N, stream
-    "aq_w8a8_matmul": [_P] * 7 + [_I] * 3 + [_P],
+    # x_q, x_scale, w_q, w_scale, out, M, K, N, stream
+    "aq_int8_matmul": [_P] * 5 + [_I] * 3 + [_P],
+    # x, workspace, workspace bytes, w_q, w_scale, out, M, K, N, stream
+    "aq_w8a8_matmul": [_P, _P, _L] + [_P] * 3 + [_I] * 3 + [_P],
+    # M, K -> the bytes of aq_w8a8_matmul's workspace
+    "aq_w8a8_workspace_bytes": [_I] * 2,
+    # M, K, N, x_q, w_q -> the body int8_matmul runs (0 decode, 1 wgmma,
+    # 2 mma_sync)
+    "aq_int8_body": [_I] * 3 + [_P] * 2,
     # w, packed, scale, zp, K, N, bits, group, stream
     "aq_quantize_pack": [_P] * 4 + [_I] * 4 + [_P],
 }

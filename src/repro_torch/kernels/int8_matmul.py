@@ -102,12 +102,6 @@ def _w4a8_workspace_bytes(m: int, k: int, n: int, g: int) -> int:
     return _lib.lib().aq_w4a8_workspace_bytes(m, k, n, g)
 
 
-# The kernel's decode body (M <= DECODE_M) splits K into pieces of
-# DECODE_K_SPLIT rows and sums their int32 partials in a workspace
-# (csrc/int8_matmul.cu: DEC_MMAX, 4 * DEC_KQ).
-DECODE_M, DECODE_K_SPLIT = 8, 512
-
-
 def int8_matmul_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
                       w_q: torch.Tensor, w_scale: torch.Tensor
                       ) -> torch.Tensor:
@@ -126,13 +120,6 @@ def w8a8_dynamic_plain(x: torch.Tensor, w_q: torch.Tensor,
     (:func:`act_quant_plain` at 8 bits), then :func:`int8_matmul_plain`."""
     x_q, x_scale = act_quant_plain(x, 8)
     return int8_matmul_plain(x_q, x_scale, w_q, w_scale).to(x.dtype)
-
-
-def _workspace(m: int, k: int, n: int, device) -> torch.Tensor:
-    """The decode body's int32 partial sums (splits, M, N); empty for the
-    tile body."""
-    splits = max(1, -(-k // DECODE_K_SPLIT)) if m <= DECODE_M else 0
-    return torch.empty((splits, m, n), dtype=torch.int32, device=device)
 
 
 def _check_int8(name, x, w_q, w_scale, *more) -> None:
@@ -166,10 +153,8 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if y.numel() == 0:
         return y
-    part = _workspace(m, k, n, x_q.device)
     _lib.launch("int8_matmul", x_q.data_ptr(), x_scale.data_ptr(),
-                w_q.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
-                part.data_ptr(), m, k, n)
+                w_q.data_ptr(), w_scale.data_ptr(), y.data_ptr(), m, k, n)
     return y
 
 
@@ -184,14 +169,40 @@ def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"w8a8_matmul kernel takes float32 x, got {x.dtype}")
     m, k = x.shape
     n = w_q.shape[1]
-    dev = x.device
-    x_q = torch.empty((m, k), dtype=torch.int8, device=dev)
-    x_scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
-    part = _workspace(m, k, n, dev)
-    _lib.launch("w8a8_matmul", x.data_ptr(), x_q.data_ptr(),
-                x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                y.data_ptr(), part.data_ptr(), m, k, n)
+    nbytes = _w8a8_workspace_bytes(m, k)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    _lib.launch("w8a8_matmul", x.data_ptr(), ws.data_ptr(), nbytes,
+                w_q.data_ptr(), w_scale.data_ptr(), y.data_ptr(), m, k, n)
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _w8a8_workspace_bytes(m: int, k: int) -> int:
+    """The bytes of w8a8_matmul's workspace (the activation codes and
+    scales), as its C entry lays it out (csrc/int8_matmul.cu)."""
+    return _lib.lib().aq_w8a8_workspace_bytes(m, k)
+
+
+# csrc/int8_matmul.cu's bodies, by the number aq_int8_body returns
+BODIES = ("decode", "wgmma", "mma_sync")
+
+
+def int8_body(x_q: torch.Tensor, w_q: torch.Tensor) -> str:
+    """The body of csrc/int8_matmul.cu that ``int8_matmul(x_q, ., w_q, .)``
+    runs: "decode" (M <= 8), "wgmma" (M > 8 and TMA-able: K and N multiples
+    of 16, 16-byte aligned x_q and w_q) or "mma_sync" (M > 8, other
+    shapes).  CUDA tensors only."""
+    m, k = x_q.shape
+    return BODIES[_lib.lib().aq_int8_body(m, k, w_q.shape[1], x_q.data_ptr(),
+                                          w_q.data_ptr())]
+
+
+def w8a8_body(x: torch.Tensor, w_q: torch.Tensor) -> str:
+    """As :func:`int8_body` for ``w8a8_matmul(x, w_q, .)``, whose codes lie
+    in its 256-byte aligned workspace."""
+    m, k = x.shape
+    return BODIES[_lib.lib().aq_int8_body(m, k, w_q.shape[1], 0,
+                                          w_q.data_ptr())]

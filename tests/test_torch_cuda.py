@@ -36,10 +36,11 @@ from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_paged_plain,
                                                flash_prefill_plain)
 from repro_torch.core.qtensor import QTensor
-from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_plain,
+from repro_torch.kernels.int8_matmul import (int8_body, int8_matmul,
+                                             int8_matmul_plain,
                                              quant_matmul_plain,
-                                             w4a8_matmul, w8a8_dynamic_plain,
-                                             w8a8_matmul)
+                                             w4a8_matmul, w8a8_body,
+                                             w8a8_dynamic_plain, w8a8_matmul)
 from repro_torch.kernels.quantize_pack import (kv4_quantize, quantize_pack,
                                                quantize_pack_plain)
 
@@ -170,9 +171,21 @@ def test_w4a8_matmul_nan_row_stays_in_its_row(dev):
 
 
 # (M, K, N): decode-shaped (M <= 8) and tile-shaped M, ragged in all three
-# (K not a multiple of 16 or 4, N not a multiple of 64 or 4)
+# (K not a multiple of 16 or 4, N not a multiple of 64 or 4; these take the
+# masked bodies), then shapes the TMA bodies take (K and N multiples of 16):
+# M not a multiple of the 128-row tile, a K tail past the 128-deep slabs
+# (1040), N below one tile, and a grid of more tiles than the card has SMs
+# (520 x 8192)
 INT8_SHAPES = [(1, 128, 64), (5, 200, 130), (8, 1000, 96), (9, 256, 128),
-               (37, 384, 200), (70, 130, 45), (130, 520, 258)]
+               (37, 384, 200), (70, 130, 45), (130, 520, 258),
+               (4, 1040, 272), (3, 4096, 160), (9, 160, 48),
+               (200, 1040, 272), (129, 384, 400), (520, 256, 8192)]
+
+
+def _int8_body_expected(m, k, n):
+    if m <= 8:
+        return "decode"
+    return "wgmma" if k > 0 and k % 16 == 0 and n % 16 == 0 else "mma_sync"
 
 
 @pytest.mark.parametrize("m,k,n", INT8_SHAPES)
@@ -184,6 +197,65 @@ def test_int8_matmul_kernel(dev, m, k, n):
     w_scale = torch.from_numpy((rng.random(n) * 0.05 + 0.01).astype(np.float32)).to(dev)
     got = int8_matmul(x_q, x_scale, w_q, w_scale)
     assert torch.equal(got, int8_matmul_plain(x_q, x_scale, w_q, w_scale))
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_body_by_shape(dev, m, k, n):
+    x_q = torch.zeros((m, k), dtype=torch.int8, device=dev)
+    w_q = torch.zeros((k, n), dtype=torch.int8, device=dev)
+    assert int8_body(x_q, w_q) == _int8_body_expected(m, k, n)
+    assert w8a8_body(x_q.float(), w_q) == _int8_body_expected(m, k, n)
+    # a 16-byte misaligned x_q leaves TMA for the masked tile body
+    if m > 8:
+        x_off = torch.zeros(m * k + 4, dtype=torch.int8, device=dev)[4:]
+        assert int8_body(x_off.view(m, k), w_q) == "mma_sync"
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_int8_matmul_empty_k(dev, m):
+    """K = 0: y is zeros in the decode body and, at M > 8, in the masked
+    body (TMA takes no empty dimension).  w8a8 has no plain version here:
+    a row of no values has no scale."""
+    x_q = torch.zeros((m, 0), dtype=torch.int8, device=dev)
+    w_q = torch.zeros((0, 32), dtype=torch.int8, device=dev)
+    x_scale = torch.ones((m, 1), device=dev)
+    w_scale = torch.ones(32, device=dev)
+    assert int8_body(x_q, w_q) == _int8_body_expected(m, 0, 32)
+    got = int8_matmul(x_q, x_scale, w_q, w_scale)
+    assert torch.equal(got, int8_matmul_plain(x_q, x_scale, w_q, w_scale))
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_int8_matmul_worst_case_accumulator(dev, m):
+    """All codes -128 at K = 11008: acc = 128 * 128 * 11008 = 180,355,072,
+    inside int32, in the decode (M = 4) and wgmma (M = 16) bodies."""
+    k, n = 11008, 64
+    x_q = torch.full((m, k), -128, dtype=torch.int8, device=dev)
+    w_q = torch.full((k, n), -128, dtype=torch.int8, device=dev)
+    x_scale = torch.full((m, 1), 0.5, device=dev)
+    w_scale = torch.full((n,), 0.25, device=dev)
+    got = int8_matmul(x_q, x_scale, w_q, w_scale)
+    assert torch.equal(got, int8_matmul_plain(x_q, x_scale, w_q, w_scale))
+    assert got[0, 0].item() == float(np.float32(180355072)) * 0.5 * 0.25
+
+
+@pytest.mark.parametrize("k,n", [(1040, 272), (4096, 384), (1000, 130)])
+def test_int8_rows_equal_across_m(dev, k, n):
+    """Rows at M = 4 (decode body) equal the same rows at M = 512 (wgmma
+    body, or the masked mma_sync body at the ragged shape), both entries."""
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((512, k)).astype(np.float32)).to(dev)
+    x_q = torch.from_numpy(rng.integers(-128, 128, (512, k)).astype(np.int8)).to(dev)
+    x_scale = torch.from_numpy((rng.random((512, 1)) * 0.05 + 0.01).astype(np.float32)).to(dev)
+    w_q = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(dev)
+    w_scale = torch.from_numpy((rng.random(n) * 0.05 + 0.01).astype(np.float32)).to(dev)
+    whole = int8_matmul(x_q, x_scale, w_q, w_scale)
+    assert torch.equal(int8_matmul(x_q[:4], x_scale[:4], w_q, w_scale),
+                       whole[:4])
+    assert torch.equal(whole, int8_matmul_plain(x_q, x_scale, w_q, w_scale))
+    whole = w8a8_matmul(x, w_q, w_scale)
+    assert torch.equal(w8a8_matmul(x[:4].contiguous(), w_q, w_scale),
+                       whole[:4])
 
 
 @pytest.mark.parametrize("m,k,n", INT8_SHAPES)
@@ -203,12 +275,13 @@ def test_w8a8_matmul_nan_row_stays_in_its_row(dev):
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((12, 256)).astype(np.float32)).to(dev)
     x[3, 100] = float("nan")
-    w_q = torch.from_numpy(rng.integers(-128, 128, (256, 40)).astype(np.int8)).to(dev)
-    w_scale = torch.ones(40, device=dev)
-    for rows in (slice(0, 5), slice(0, 12)):          # decode and tile bodies
-        y = w8a8_matmul(x[rows].contiguous(), w_q, w_scale)
-        assert torch.isnan(y[3]).all()
-        assert torch.isfinite(y[[0, 1, 2, 4]]).all()
+    for n in (40, 48):              # the mma_sync and wgmma tile bodies
+        w_q = torch.from_numpy(rng.integers(-128, 128, (256, n)).astype(np.int8)).to(dev)
+        w_scale = torch.ones(n, device=dev)
+        for rows in (slice(0, 5), slice(0, 12)):      # decode and tile bodies
+            y = w8a8_matmul(x[rows].contiguous(), w_q, w_scale)
+            assert torch.isnan(y[3]).all()
+            assert torch.isfinite(y[[0, 1, 2, 4]]).all()
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
