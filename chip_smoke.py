@@ -62,18 +62,41 @@ failure raises (exit code != 0).
    ``int8_matmul`` at M = 4 and 512 on phase 3's prompt embeddings, bit for
    bit against the plain version; then one call of each at each M under
    torch.profiler must run one kernel (int8_matmul) or two (w8a8_matmul:
-   the pre-pass and the product).
-8. summary.  Every kernel's ``launches`` is the count of the runs above
-   that drive the main path (phases 3-6 for the six serving kernels, phase
-   7 for the other three), never of the comparisons of phase 2.
+   the pre-pass and the product) and return the plain version's bits; a
+   trace whose device records the profiler lost (its CPU side holds the
+   launch) is taken again and counted in the summary's
+   ``profiler_retries``.
+8. calibrate: AffineQuant calibration of llama-7b-width blocks on the
+   card (depth cut to 2 layers; 32 x 512 Markov tokens, batch 8, 3 epochs,
+   alpha 0.1) through ``repro_torch.launch.calibrate``, then serving of the
+   packed tree: (a) W4A4 g128 kv8 with diagonal norm sites (merged into the
+   norms, which gain a bias) and 32 headwise vo transforms, through
+   w4a8_matmul; (b) W4A16 g128 kv16 with full 4096 x 4096 norm sites under
+   the gradual mask, kept as explicit activation factors, through
+   dequant_matmul.  Gates: every epoch loss finite and each block's last
+   below its first; every full and headwise effective matrix strictly
+   diagonally dominant (margin > 0); the packed tree written by
+   ``checkpoints.save`` and read back by ``load_tree`` byte for byte;
+   ``serve --load-packed`` on that directory gives the in-memory tree's
+   greedy streams (4 requests x (128 + 32)); the kernel path against the
+   plain versions (a: the per-block check, b: phase 4's end-to-end check);
+   and for (b) the packed tree's teacher-forced logits against the
+   fake-quant tree through the float forward within FAKE_TOL.  Logs the
+   median step time, peak memory, perplexities and the phase's wall time.
+9. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (phases 3-6 and the serving runs of phase 8 for
+   the six serving kernels, phase 7 for the other three), never of the
+   comparisons of phases 2 and 8.
 
 Phases 3, 5, 6 and 7 share one packed llama-7b tree.
-The last lines are one JSON object of the kernels, the card's name and
+The last lines are one JSON object of the kernels (with phase 7's
+``profiler_retries``), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -235,10 +258,16 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     counts, streams, prompts = serve_w4a4(torch, params)
     phases = [serve_a16(torch), serve_paged(torch, params, streams),
-              serve_kv4(torch, params), repack(torch, params, prompts)]
+              serve_kv4(torch, params)]
+    repacked, retries = repack(torch, params, prompts)
+    phases.append(repacked)
     del params
+    torch.cuda.empty_cache()
 
-    # ---- 8. summary --------------------------------------------------------
+    # ---- 8. calibrate llama-7b-width blocks and serve what they pack -------
+    phases.append(calibrate_phase(torch))
+
+    # ---- 9. summary --------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -258,8 +287,10 @@ def main() -> None:
                          "tpu": r["replaces"], "max_err": r["max_abs_err"],
                          "kernel_ms": r["ms"],
                          "bound_us": r["bound_ms"] * 1e3})
-    log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    log(f"[total] {time.perf_counter() - t_start:.1f} s; phase 7 traced "
+        f"{retries} call(s) again after the profiler lost their device "
+        f"records")
+    print(json.dumps({"kernels": kernels, "profiler_retries": retries}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -947,21 +978,12 @@ def gate_blockwise(torch, tag, out, prompts, gen, **paged) -> None:
 def teacher_forced_logits(torch, out, prompts, gen, steps: int = 8):
     """Prefill logits and ``steps`` teacher-forced decode steps through the
     kernels (mode "auto") and through the plain versions."""
+    from repro_torch.launch.serve import teacher_forced
     from repro_torch.serve.quantized import QuantizedModel
-    logits = []
-    for mode in ("auto", "plain"):
-        model = QuantizedModel(out["cfg"], out["qcfg"], mode=mode,
-                               device=out["model"].device)
-        lg, cache = model.prefill(out["params"], {"tokens": prompts},
-                                  max_len=512)
-        seq = [lg]
-        for i in range(steps):
-            lg, cache = model.decode_step(out["params"], gen[:, i:i + 1],
-                                          cache)
-            seq.append(lg)
-        logits.append(torch.cat(seq, 1))
-        del cache
-    return logits
+    return [teacher_forced(QuantizedModel(out["cfg"], out["qcfg"], mode=mode,
+                                          device=out["model"].device),
+                           out["params"], prompts, gen, steps, 512)
+            for mode in ("auto", "plain")]
 
 
 def blockwise_check(torch, out, prompts, gen, steps: int = 8,
@@ -978,7 +1000,8 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
     Returns (share of rows agreeing to ROW_TOL, rows, (largest row
     difference, where))."""
     from repro_torch.serve import kv_cache as kvc
-    from repro_torch.serve.quantized import QuantizedModel, _layer
+    from repro_torch.models.init import layer
+    from repro_torch.serve.quantized import QuantizedModel
     cfg, params = out["cfg"], out["params"]
     dev = out["model"].device
     models = [QuantizedModel(cfg, out["qcfg"], mode=m, device=dev)
@@ -1028,7 +1051,7 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
             write = kvc.chunk_write_index(offset, cl, c, 512)
         x = params["embed"][tokens[:, c0:c0 + c].long()]
         for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
+            lp = layer(params["layers"], i)
             ya, yp = (m._block_prefill_chunk(lp, x, m._kv_entries(cc, i), pos,
                                              offset, cl, write, pt)
                       for m, cc in zip(models, caches))
@@ -1042,7 +1065,7 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
             write = kvc.token_write_index(kvc.token_write_dest(
                 pt, cur, page_size, rows // page_size), rows)
         for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
+            lp = layer(params["layers"], i)
             if page_size:
                 ya, yp = (m._block_decode_paged(
                     lp, x, m._kv_entries(cc, i), cur, pt, write,
@@ -1214,20 +1237,41 @@ def serve_kv4(torch, params) -> dict:
 # 7. the three kernels no serving path runs, over the served tree
 # ---------------------------------------------------------------------------
 
-def device_kernels(torch, fn) -> list:
+def device_kernels(torch, fn, want, tries: int = 3) -> tuple[list, int]:
     """The names of the device kernels one call of ``fn`` runs
-    (torch.profiler)."""
+    (torch.profiler), and how many traces were taken again.  Every traced
+    call must return ``want`` bit for bit.  The profiler at times loses a
+    trace's device records (``python -m repro_torch.launch.card_probe``
+    counts how often): the trace holds no device event while its CPU side
+    holds the kernel launch (``cudaLaunchKernel`` /
+    ``cudaLaunchKernelExC``), the wrapper counted it and the output is
+    bit-equal.  Only such a trace is taken again, up to ``tries`` times;
+    an empty trace with no launch call fails."""
     from torch.autograd import DeviceType
     act = torch.profiler.ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        fn()
+    for retry in range(tries):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            got = fn()
+            torch.cuda.synchronize()
+        if not torch.equal(got.reshape(want.shape), want):
+            raise RuntimeError("repack: a traced call differs from the "
+                               "plain version")
+        events = prof.events()
+        names = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        if names:
+            return names, retry
+        if not any(re.match(r"cu(da)?LaunchKernel", e.name) for e in events):
+            raise RuntimeError("repack: a traced call launched no kernel")
+        log("[repack] the profiler lost the device records of a launch; "
+            "tracing again")
+    raise RuntimeError(f"repack: {tries} traces in a row lost their device "
+                       f"records")
 
 
-def repack(torch, params, prompts) -> dict:
-    """Phase 7 (see the module docstring); returns its launch counts."""
+def repack(torch, params, prompts) -> tuple[dict, int]:
+    """Phase 7 (see the module docstring); returns its launch counts and
+    how many profiler traces were taken again."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import int8_matmul as i8
@@ -1294,14 +1338,18 @@ def repack(torch, params, prompts) -> dict:
             raise RuntimeError(f"repack: {name} was never launched")
     # device kernels of one call of each entry, after the counts are read
     w_q, w_scale = probe
+    retries = 0
     for xa in acts:
-        x_q, x_scale = i8.act_quant_plain(xa.reshape(-1, xa.shape[-1]), 8)
+        x2 = xa.reshape(-1, xa.shape[-1])
+        plain = i8.w8a8_dynamic_plain(x2, w_q, w_scale)
+        x_q, x_scale = i8.act_quant_plain(x2, 8)
         x_q = x_q.to(torch.int8)
         for name, fn, want in (
                 ("w8a8_matmul", lambda: ops.w8a8_matmul(xa, w_q, w_scale), 2),
                 ("int8_matmul",
                  lambda: i8.int8_matmul(x_q, x_scale, w_q, w_scale), 1)):
-            names = device_kernels(torch, fn)
+            names, n = device_kernels(torch, fn, plain)
+            retries += n
             ours = [re.search(r"\w+_kernel", k).group(0) for k in names
                     if re.search(r"int8_\w+_kernel|act_quant_kernel", k)]
             log(f"[repack] {name} at M={x_q.shape[0]}: {len(ours)} launch(es) "
@@ -1312,6 +1360,177 @@ def repack(torch, params, prompts) -> dict:
                                    f"kernels a call, not {want}")
     del x, acts
     torch.cuda.empty_cache()
+    return counts, retries
+
+
+# ---------------------------------------------------------------------------
+# 8. calibrate llama-7b-width blocks on the card and serve what they pack
+# ---------------------------------------------------------------------------
+
+CALIB_LAYERS = 2          # llama-7b depth cut from 32: calibration's time
+CALIB_ARGS = ["--arch", "llama-7b", "--layers", str(CALIB_LAYERS),
+              "--method", "affine", "--epochs", "3", "--alpha", "0.1",
+              "--calib-samples", "32", "--calib-seq", "512", "--seed", "0",
+              "--device", "cuda"]
+CALIB_RUNS = {"a": dict(wbits=4, abits=4, group=128, kvbits=8),
+              "b": dict(wbits=4, abits=16, group=128, kvbits=16)}
+# (b): the packed tree through the kernels against the fake-quant tree
+# through the float forward differ only by float reassociation ((h @ inv(A))
+# @ Q(A W) against h @ (inv(A) @ Q(A W))) and summation order; on the CPU
+# (plain versions, 3 epochs) the largest logit difference was 1.7e-6
+# (llama-mini) and 1.4e-6 (d 1024) of the largest logit.
+FAKE_TOL = 1e-4
+
+
+def require_launched(counts: dict, names, tag: str) -> None:
+    for name in names:
+        if counts[name] <= 0:
+            raise RuntimeError(f"{tag}: {name} was never launched")
+
+
+def _counted_serve(argv: list, params):
+    """One serving run through the CLI's entry point, launch counters zeroed
+    just before and read just after."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    _lib.reset_launches()
+    out = serve.serve(serve.build_parser().parse_args(argv), params)
+    return out, dict(_lib.LAUNCHES)
+
+
+def _margins(torch, out) -> dict:
+    """Dominance margin of every full and headwise effective matrix after
+    the last epoch (a headwise site: its least margin over the heads)."""
+    from repro_torch.core import affine as af
+    from repro_torch.core import calibration as cal
+    from repro_torch.core import gradual_mask as gm
+    ccfg, margins = out["ccfg"], {}
+    for i, qp in enumerate(out["info"]["block_qps"]):
+        specs = cal._specs_from(qp)
+        masks = cal._masks(specs, ccfg.epochs, ccfg, out["model"].device)
+        for name, spec in specs.items():
+            if spec.kind != "diagonal":
+                a = af.effective_matrix(spec, qp["affine"][name], masks[name])
+                margins[f"block {i} {name} {spec.kind} "
+                        f"{'x'.join(map(str, a.shape))}"] = \
+                    float(gm.dominance_margin(a))
+    return margins
+
+
+def calibrate_phase(torch) -> dict:
+    """Phase 8 (see the module docstring); returns its launch counts."""
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import calibrate, serve
+    from repro_torch.train import checkpoints
+    t_phase = time.perf_counter()
+    log(f"[calibrate] llama-7b widths, depth cut to {CALIB_LAYERS} of 32 "
+        f"layers; 32 x 512 calibration tokens (the paper: 128 x 2048), batch "
+        f"8, 3 epochs, alpha 0.1; float32, no TF32")
+    counts = {name: 0 for name in KERNELS}
+    for run, flags in CALIB_RUNS.items():
+        tag = f"calibrate-{run}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = calibrate.calibrate(calibrate.build_parser().parse_args(
+            _with(CALIB_ARGS, wbits=flags["wbits"], abits=flags["abits"],
+                  group=flags["group"])))
+        info, rep = out["info"], out["report"]
+        steps = info["step_seconds"]
+        kinds = {n: d["kind"] for n, d in info["block_qps"][0]["_sites"].items()}
+        log(f"[{tag}] w{flags['wbits']}a{flags['abits']}g{flags['group']} "
+            f"sites {kinds}: "
+            f"{len(steps)} steps, median {statistics.median(steps):.4f} s a "
+            f"step (min {min(steps):.4f}, max {max(steps):.4f}); calibration "
+            f"and finalize {time.perf_counter() - t0:.1f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"[{tag}] epoch losses per block {info['block_losses']}; held-out "
+            f"16 x 512 perplexity fp {rep['fp_ppl']:.4f} -> quant "
+            f"{rep['quant_ppl']:.4f} (random weights: informative only)")
+        margins = _margins(torch, out)
+        log(f"[{tag}] dominance margins (Levy-Desplanques, > 0 = "
+            f"invertible): {margins}")
+        for i, losses in enumerate(info["block_losses"]):
+            if not (len(losses) == out["ccfg"].epochs
+                    and all(map(math.isfinite, losses))
+                    and losses[-1] < losses[0]):
+                raise RuntimeError(f"{tag}: block {i} losses {losses} are not "
+                                   f"finite and falling")
+        if not (margins and min(margins.values()) > 0):
+            raise RuntimeError(f"{tag}: an effective matrix is not strictly "
+                               f"diagonally dominant")
+        packed, fake, cfg, qcfg = (out[k] for k in ("packed", "fake", "cfg",
+                                                   "qcfg"))
+        dev = out["model"].device
+        del out
+        sargv = _with(SERVE_ARGS, layers=CALIB_LAYERS, device=dev.type,
+                      **flags)
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            checkpoints.save(ckpt, 0, packed)
+            back = checkpoints.load_tree(ckpt, cfg, qcfg, device=dev)
+            want, got = checkpoints.flatten(packed), checkpoints.flatten(back)
+            same = sorted(want) == sorted(got) and all(
+                want[k][1] == got[k][1] and want[k][0].shape == got[k][0].shape
+                and want[k][0].tobytes() == got[k][0].tobytes() for k in want)
+            log(f"[{tag}] packed tree saved and read back in "
+                f"{time.perf_counter() - t0:.1f} s: {len(want)} leaves, "
+                f"{sum(a.nbytes for a, _ in want.values())} bytes, "
+                f"byte-equal {same}")
+            if not same:
+                raise RuntimeError(f"{tag}: the checkpoint round trip changed "
+                                   f"the packed tree")
+            del back, want, got
+            mem, c_mem = _counted_serve(sargv, packed)
+            disk, c_disk = _counted_serve(sargv + ["--load-packed", ckpt],
+                                          None)
+        streams = [r.out_tokens for r in mem["requests"]]
+        log(f"[{tag}] served {mem['generated']} + {disk['generated']} tokens "
+            f"(in memory, --load-packed) at {mem['tokens_per_s']:.2f} / "
+            f"{disk['tokens_per_s']:.2f} tok/s; launches {c_mem} / {c_disk}")
+        if any(len(s) != 32 for s in streams):
+            raise RuntimeError(f"{tag}: a request did not produce 32 tokens")
+        if [r.out_tokens for r in disk["requests"]] != streams:
+            raise RuntimeError(f"{tag}: --load-packed streams differ from the "
+                               f"in-memory tree's")
+        log(f"[{tag}] --load-packed greedy streams equal the in-memory tree's")
+        main = ("w4a8_matmul",) if flags["abits"] < 16 else ("dequant_matmul",)
+        for c in (c_mem, c_disk):
+            require_launched(c, main + ("flash_prefill", "flash_decode"), tag)
+            for name in KERNELS:
+                counts[name] += c[name]
+        del disk
+        prompts = torch.from_numpy(np.stack(mem["prompts"]))
+        gen = torch.tensor(streams, dtype=torch.int32)
+        if flags["abits"] < 16:
+            gate_blockwise(torch, tag, mem, prompts, gen)
+        else:
+            a, p = teacher_forced_logits(torch, mem, prompts, gen)
+            rel = ((a - p).abs().max() / p.abs().max()).item()
+            log(f"[{tag}] teacher-forced logits (prefill + 8 decode steps), "
+                f"kernels vs plain: max|dlogit| / max|logit| {rel:.3e} (tol "
+                f"{A16_TOL:.0e})")
+            if not (torch.isfinite(a).all() and rel <= A16_TOL):
+                raise RuntimeError(f"{tag}: kernels and plain versions "
+                                   f"disagree")
+            del a, p
+            lp, ls = serve.packed_and_fake_logits(mem["model"], packed, fake,
+                                                 mem["prompts"], streams)
+            rel = ((lp - ls).abs().max() / ls.abs().max()).item()
+            agree = (lp.argmax(-1) == ls.argmax(-1)).float().mean().item()
+            log(f"[{tag}] packed tree (kernels) vs fake-quant tree (float "
+                f"forward), teacher-forced over 4 x 32 tokens: max|dlogit| / "
+                f"max|logit| {rel:.3e} (tol {FAKE_TOL:.0e}); greedy agreement "
+                f"{agree:.4f}")
+            if not (torch.isfinite(lp).all() and rel <= FAKE_TOL):
+                raise RuntimeError(f"{tag}: the packed tree departs from the "
+                                   f"calibrated simulation")
+            del lp, ls
+        del mem, packed, fake
+    torch.cuda.empty_cache()
+    log(f"[calibrate] phase wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}")
     return counts
 
 

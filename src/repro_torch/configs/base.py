@@ -1,4 +1,4 @@
-"""Model configuration: the fields the dense llama serving path reads."""
+"""Model configuration: the fields the dense llama path reads."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +14,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
+    family: str = "dense"            # the port has the dense family only
     act: str = "swiglu"
     norm: str = "rmsnorm"
     qkv_bias: bool = False

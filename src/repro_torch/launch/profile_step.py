@@ -38,7 +38,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.device != "cuda":
         raise SystemExit("profile_step measures the card: --device cuda")
-    cfg, qcfg, params, model = serve.build_model(args)
+    cfg, qcfg, params, model, _ = serve.build_model(args)
     if args.prompt_len + 4 + 2 * args.steps > args.max_len:
         raise SystemExit("--max-len too small for the prompt and the steps")
     rng = np.random.default_rng(args.seed)

@@ -16,6 +16,15 @@ widths stay the architecture's.  ``--kvbits`` takes 4, 8 or 16;
 admits prompts in chunks of N tokens.  ``--device`` defaults to
 ``cuda`` and raises when no CUDA device exists; ``--device cpu`` runs the
 plain versions of the kernels.
+
+Other weights: ``--ckpt DIR`` reads a float tree (npz layout of
+``train/checkpoints.py``) and packs it on the RTN grid; ``--calibrate``
+calibrates the float weights in process (AffineQuant, ``CalibConfig(epochs
+=5)``, 16 Markov samples of the prompt length) and serves the packed result,
+then prints the greedy agreement of the packed tree with the calibrated
+fake-quant simulation, teacher-forced on the served streams;
+``--load-packed DIR`` serves a packed tree written earlier (by
+``launch/calibrate.py`` or ``checkpoints.save``).
 """
 from __future__ import annotations
 
@@ -29,11 +38,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.calibration import (CalibConfig, finalize_model,
+                                          quantize_dense_model)
 from repro_torch.core.quantizer import QuantConfig
-from repro_torch.models.init import init_block, init_top, stack_layers
+from repro_torch.data import MarkovCorpus
+from repro_torch.device import resolve_device
+from repro_torch.launch.calibrate import load_float_params
+from repro_torch.models import transformer
+from repro_torch.models.init import init_block, init_lm, init_top, stack_layers
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.quantized import (QuantizedModel, quantize_layers,
-                                         resolve_device)
+                                         quantize_lm_packed)
+from repro_torch.train import checkpoints
 
 
 def random_packed_lm(cfg, qcfg: QuantConfig, seed: int, device) -> dict:
@@ -45,6 +61,41 @@ def random_packed_lm(cfg, qcfg: QuantConfig, seed: int, device) -> dict:
         [quantize_layers(init_block(cfg, gen, device), qcfg)
          for _ in range(cfg.num_layers)])
     return params
+
+
+def calibrated_lm(float_params: dict, cfg, qcfg: QuantConfig, args
+                  ) -> tuple[dict, dict]:
+    """(packed tree, fake-quant simulation tree) of an in-process
+    AffineQuant calibration on 16 Markov samples of the prompt length."""
+    ccfg = CalibConfig(epochs=5)
+    calib = MarkovCorpus(vocab=cfg.vocab_size, seed=args.seed).sample(
+        16, args.prompt_len, seed=777)
+    fake, info = quantize_dense_model(float_params, cfg, qcfg, ccfg,
+                                      torch.from_numpy(calib), log=False)
+    packed = finalize_model(float_params, info["block_qps"], cfg, qcfg, ccfg,
+                            deploy="packed")
+    return packed, fake
+
+
+def load_params(args, cfg, qcfg: QuantConfig, device
+                ) -> tuple[dict, Optional[dict]]:
+    """(packed tree, fake-quant tree or None) as the flags ask."""
+    if args.load_packed and args.ckpt:
+        raise ValueError("--load-packed serves a packed tree; --ckpt names "
+                         "a float one: pass one of them")
+    if args.load_packed:
+        return checkpoints.load_tree(args.load_packed, cfg, qcfg,
+                                     device=device), None
+    if not (args.ckpt or args.calibrate):
+        return random_packed_lm(cfg, qcfg, args.seed, device), None
+    if args.ckpt:
+        float_params = load_float_params(args.ckpt, cfg, qcfg, device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        float_params = init_lm(cfg, gen, device)
+    if args.calibrate:
+        return calibrated_lm(float_params, cfg, qcfg, args)
+    return quantize_lm_packed(float_params, cfg, qcfg), None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,13 +124,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="> 0: chunked admission, one chunk per step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    src = ap.add_mutually_exclusive_group()
+    src.add_argument("--load-packed", default=None, metavar="DIR",
+                     help="serve a packed checkpoint")
+    src.add_argument("--calibrate", action="store_true",
+                     help="calibrate the float weights (random, or --ckpt) "
+                          "in process and serve the packed result")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="float checkpoint: packed on the RTN grid, or "
+                         "calibrated with --calibrate")
     return ap
 
 
 def build_model(args: argparse.Namespace, params: Optional[dict] = None):
-    """(cfg, qcfg, packed params, QuantizedModel) from the parsed flags;
-    ``params`` reuses a packed tree built for the same arch, depth, weight
-    bits, group and seed (the KV format and activation bits may differ)."""
+    """(cfg, qcfg, packed params, QuantizedModel, fake-quant tree or None)
+    from the parsed flags; ``params`` reuses a packed tree built for the
+    same arch, depth, weight bits, group and seed (the KV format and
+    activation bits may differ)."""
     device = resolve_device(args.device)
     # float32 matmuls left to PyTorch (vocab head, activation transforms)
     # stay full float32: no TF32
@@ -90,15 +151,16 @@ def build_model(args: argparse.Namespace, params: Optional[dict] = None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     qcfg = QuantConfig(w_bits=args.wbits, a_bits=args.abits,
                        group_size=args.group, kv_bits=args.kvbits)
+    fake = None
     if params is None:
-        params = random_packed_lm(cfg, qcfg, args.seed, device)
-    return cfg, qcfg, params, QuantizedModel(cfg, qcfg, device=device)
+        params, fake = load_params(args, cfg, qcfg, device)
+    return cfg, qcfg, params, QuantizedModel(cfg, qcfg, device=device), fake
 
 
 def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     """Build, run and time one serving session; returns the engine, its
     requests and the measurements.  ``params``: as in :func:`build_model`."""
-    cfg, qcfg, params, model = build_model(args, params)
+    cfg, qcfg, params, model, fake = build_model(args, params)
     engine = Engine(model, params, ServeConfig(
         max_batch=args.max_batch, max_len=args.max_len,
         max_new=args.max_new, paged=args.paged, page_size=args.page_size,
@@ -120,10 +182,41 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     reqs = engine.run()          # nothing left: returns the requests
     generated = sum(len(r.out_tokens) for r in reqs)
     return {"cfg": cfg, "qcfg": qcfg, "model": model, "params": params,
-            "engine": engine, "requests": reqs, "prompts": prompts,
+            "fake": fake, "engine": engine, "requests": reqs,
+            "prompts": prompts,
             "seconds": seconds, "generated": generated,
             "tokens_per_s": generated / seconds, "step_seconds": step_s,
             "preemptions": engine.preemptions, **engine.memory_report()}
+
+
+@torch.no_grad()
+def teacher_forced(model: QuantizedModel, params: dict, prompts: torch.Tensor,
+                   gen: torch.Tensor, steps: int, max_len: int
+                   ) -> torch.Tensor:
+    """Logits (B, 1 + steps, vocab) of the packed tree: the prefill's last
+    position, then ``steps`` decode steps fed ``gen[:, i]``."""
+    lg, cache = model.prefill(params, {"tokens": prompts}, max_len=max_len)
+    seq = [lg]
+    for i in range(steps):
+        lg, cache = model.decode_step(params, gen[:, i:i + 1], cache)
+        seq.append(lg)
+    return torch.cat(seq, 1)
+
+
+@torch.no_grad()
+def packed_and_fake_logits(model: QuantizedModel, params: dict, fake: dict,
+                           prompts: list, streams: list
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Logits (B, n, vocab) of the packed tree, teacher-forced on the
+    served tokens, and of the fake-quant tree through the float forward, at
+    the positions that predicted the ``n`` served tokens."""
+    n = min(len(s) for s in streams)
+    p = torch.as_tensor(np.stack(prompts), dtype=torch.int32)
+    gen = torch.as_tensor([s[:n] for s in streams], dtype=torch.int32)
+    packed = teacher_forced(model, params, p, gen, n - 1, p.shape[1] + n)
+    tokens = torch.cat([p, gen[:, :n - 1]], 1).to(model.device)
+    sim = transformer.forward(fake, model.cfg, tokens)[:, p.shape[1] - 1:]
+    return packed, sim
 
 
 def main(argv=None) -> dict:
@@ -140,6 +233,14 @@ def main(argv=None) -> dict:
           f"{len(steps) - 1} steps")
     print(f"[serve] weight bytes {out['weight_bytes']}, KV bytes "
           f"{out['kv_bytes']}, preemptions {out['preemptions']}")
+    if out["fake"] is not None:
+        packed, sim = packed_and_fake_logits(
+            out["model"], out["params"], out["fake"], out["prompts"],
+            [r.out_tokens for r in out["requests"]])
+        agree = (packed.argmax(-1) == sim.argmax(-1)).float().mean().item()
+        print(f"[serve] calibrated packed vs fake-quant simulation, "
+              f"teacher-forced on the served streams: greedy agreement "
+              f"{agree:.4f} over {sim.shape[0] * sim.shape[1]} tokens")
     return out
 
 

@@ -1,1 +1,2 @@
-"""Dense llama trunk pieces of the port: layers and initialisation."""
+"""The dense llama trunk of the port: layers, attention, the float model
+and initialisation."""

@@ -74,6 +74,14 @@ def stack_layers(blocks: list) -> dict:
     return torch.stack(blocks)
 
 
+def layer(tree, i):
+    """Layer ``i`` of a stacked tree (views; QTensors index their three
+    tensors)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Float parameter tree with stacked layers."""
     params = init_top(cfg, gen, device)

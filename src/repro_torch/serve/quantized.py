@@ -34,28 +34,18 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.quantizer import QuantConfig, quantize_codes
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_matmul import KERNEL_BITS
 from repro_torch.kernels.quantize_pack import (KV_BLOCK, kv4_check_head_dim,
                                                kv4_quantize)
 from repro_torch.models import layers
+from repro_torch.models.init import layer
 from repro_torch.serve import kv_cache
 from repro_torch.serve.kv_cache import PagedKVCache, chunk_write_index
 
 PACKED_WEIGHTS = ("wq", "wk", "wv", "wo")
 PACKED_MLP = ("w_gate", "w_up", "w_down")
-
-
-def resolve_device(device) -> torch.device:
-    """The requested device; CUDA that is absent raises (no quiet CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but no CUDA device is "
-                           "available; pass device='cpu' to run the plain "
-                           "versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device {dev}: use 'cuda' or 'cpu'")
-    return dev
 
 
 def quantize_layers(lp: dict, qcfg: QuantConfig) -> dict:
@@ -105,13 +95,6 @@ def _kv_quantize(x: torch.Tensor, kv_bits: int):
     scale = bound / torch.full_like(bound, qmax)     # IEEE quotient
     q = torch.clamp(torch.round(xf / scale[..., None]), -qmax - 1.0, qmax)
     return q.to(torch.int8), scale
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,7 +252,7 @@ class QuantizedModel:
             write = chunk_write_index(offset, chunk_len, c, cap)
         for i in range(self.cfg.num_layers):
             x = self._block_prefill_chunk(
-                _layer(params["layers"], i), x, self._kv_entries(cache, i),
+                layer(params["layers"], i), x, self._kv_entries(cache, i),
                 pos, offset, chunk_len, write, page_table)
         lens = torch.clamp_max(offset + chunk_len, cap).to(torch.int32)
         if page_table is None:
@@ -322,7 +305,7 @@ class QuantizedModel:
         cur_len = cache["len"]
         s = cache["k"].shape[2]
         for i in range(self.cfg.num_layers):
-            x = self._block_decode(_layer(params["layers"], i), x,
+            x = self._block_decode(layer(params["layers"], i), x,
                                    self._kv_entries(cache, i), cur_len)
         logits = self._head(params, x)
         cache["len"] = torch.clamp_max(cur_len + 1, s).to(torch.int32)
@@ -355,7 +338,7 @@ class QuantizedModel:
         write = kv_cache.token_write_index(kv_cache.token_write_dest(
             cache.page_table, cur_len, cache.page_size, cache.num_pages), rows)
         for i in range(self.cfg.num_layers):
-            x = self._block_decode_paged(_layer(params["layers"], i), x,
+            x = self._block_decode_paged(layer(params["layers"], i), x,
                                          self._kv_entries(cache, i), cur_len,
                                          cache.page_table, write, cap)
         logits = self._head(params, x)

@@ -1,6 +1,7 @@
 """The bridge carries every leaf of a reference tree byte for byte, bf16
 leaves included (numpy holds them as ``ml_dtypes.bfloat16``, which
-``torch.from_numpy`` refuses)."""
+``torch.from_numpy`` refuses), and passes a calibration tree's site
+descriptions (strings, ints, bools) through unchanged."""
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -48,3 +49,33 @@ def test_bridge_carries_bf16_f32_int8_uint8_leaves_byte_for_byte():
     # the bf16 values themselves, not only their bytes
     np.testing.assert_array_equal(out["bf16"].float().numpy(),
                                   bf16.astype(np.float32))
+
+
+def test_bridge_carries_a_calibration_parameter_tree():
+    """The reference's learnable tree for one block: affine matrices,
+    shifts and LWC logits become tensors byte for byte; ``_sites`` (str,
+    int and bool leaves) pass through as they are."""
+    import jax
+    from repro.configs import get_config
+    from repro.core.calibration import CalibConfig, init_block_quant_params
+    from repro.core.quantizer import QuantConfig
+    from repro.models import build_model
+    cfg = get_config("llama-micro")
+    params = build_model(cfg).init(jax.random.PRNGKey(0))
+    block = jax.tree_util.tree_map(lambda x: x[0], params["layers"])
+    qp = init_block_quant_params(block, cfg, QuantConfig(w_bits=4, a_bits=4,
+                                                         group_size=32),
+                                 CalibConfig())
+    host = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) if isinstance(x, jax.Array) else x, qp)
+    out = from_jax_params(host)
+    assert out["_sites"] == qp["_sites"]
+    assert out["_sites"]["vo"]["kind"] == "headwise"
+    assert isinstance(out["_sites"]["ln_attn"]["with_shift"], bool)
+    for site in qp["affine"]:
+        for k, v in qp["affine"][site].items():
+            _same_bytes(out["affine"][site][k], np.asarray(v))
+    for w in qp["lwc"]:
+        for k, v in qp["lwc"][w].items():
+            _same_bytes(out["lwc"][w][k], np.asarray(v))
+    assert from_jax_params([np.ones(2, np.float32), "x", 3])[1:] == ["x", 3]
