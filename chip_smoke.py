@@ -83,18 +83,47 @@ failure raises (exit code != 0).
    and for (b) the packed tree's teacher-forced logits against the
    fake-quant tree through the float forward within FAKE_TOL.  Logs the
    median step time, peak memory, perplexities and the phase's wall time.
-9. summary.  Every kernel's ``launches`` is the count of the runs above
-   that drive the main path (phases 3-6 and the serving runs of phase 8 for
-   the six serving kernels, phase 7 for the other three), never of the
-   comparisons of phases 2 and 8.
+9. the Engine contract on phase 3's tree (pages and chunks of 64, run
+   after phase 6 while the tree is resident), through ``Engine.submit`` /
+   ``run``: (a) prefix sharing: 4 requests share a 320-token system prompt
+   and add 64-token suffixes (32 new tokens each); a cold and a replay wave
+   on one engine whose pool holds the trace (4 x 7 pages) must give the
+   no-sharing paged engine's streams token for token, the replay 4 of 4
+   hits with 320 tokens matched each (5 of 6 full pages: one token stays
+   novel) and 256 prefilled, ``verify()`` after each wave, and a blake2b
+   digest of every registered page's pool bytes unchanged from
+   ``register_prefix`` to the drain; then the per-block check over a
+   prefix-resumed chunk on the adopted pages.  (b) the failure model: a
+   writer completes, three readers adopt its prompt pages at once, a NaN
+   is injected into one reader mid-decode; every reader ends FAILED_NAN
+   (each co-reader naming the reader whose quarantine failed it), the
+   writer COMPLETED, each partial stream a prefix of its no-sharing
+   stream, a late resubmission re-prefills (0 tokens matched) to the
+   no-sharing stream, the pool conserved under integrity checks; one short
+   trace each for a deadline, a raising callback, cancel when queued,
+   mid-prefill and decoding, and allocator faults (3, and forever: the
+   watchdog) with the survivors equal to the unfaulted run; and, reported
+   only, whether a NaN left in an unscrubbed recycled page reaches its
+   next tenant through the paged decode kernel and its plain version.  (c)
+   sampling: phase 3's requests at temperature 0.8, top-k 40, seed 0 over
+   the linear engine (twice) and phase 5b's 10-page pool must give equal
+   streams, the pool must preempt, top-k 1 must give phase 3's greedy
+   streams and the sampled streams must differ from them.  Each part logs
+   its wall time and each wave its tokens/s beside the card's name and
+   power limit.
+10. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (phases 3-6, 9 and the serving runs of phase 8
+   for the six serving kernels, phase 7 for the other three), never of the
+   comparisons of phases 2, 8 and 9.
 
-Phases 3, 5, 6 and 7 share one packed llama-7b tree.
+Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels (with phase 7's
 ``profiler_retries``), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -259,6 +288,9 @@ def main() -> None:
     counts, streams, prompts = serve_w4a4(torch, params)
     phases = [serve_a16(torch), serve_paged(torch, params, streams),
               serve_kv4(torch, params)]
+    # ---- 9. the Engine contract, on the same tree -------------------------
+    phases.append(engine_contract(torch, params, list(prompts.numpy()),
+                                  streams))
     repacked, retries = repack(torch, params, prompts)
     phases.append(repacked)
     del params
@@ -267,7 +299,7 @@ def main() -> None:
     # ---- 8. calibrate llama-7b-width blocks and serve what they pack -------
     phases.append(calibrate_phase(torch))
 
-    # ---- 9. summary --------------------------------------------------------
+    # ---- 10. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -964,8 +996,9 @@ def serve_w4a4(torch, params) -> tuple[dict, list, "torch.Tensor"]:
 def gate_blockwise(torch, tag, out, prompts, gen, **paged) -> None:
     """The per-block teacher-forced check, logged and gated at ROW_SHARE."""
     share, n_rows, worst = blockwise_check(torch, out, prompts, gen, **paged)
-    log(f"[{tag}] per-block teacher-forced kernels vs plain (prefill + 8 "
-        f"decode steps, every layer): {share['block']:.4f} of "
+    log(f"[{tag}] per-block teacher-forced kernels vs plain (prefill + "
+        f"{paged.get('steps', 8)} decode steps, every layer): "
+        f"{share['block']:.4f} of "
         f"{n_rows['block']} block-output token rows and {share['logit']:.4f} "
         f"of {n_rows['logit']} logit rows agree to {ROW_TOL:.0e} (gate "
         f"{ROW_SHARE} each); largest row difference {worst[0]:.3e} at "
@@ -986,19 +1019,36 @@ def teacher_forced_logits(torch, out, prompts, gen, steps: int = 8):
             for mode in ("auto", "plain")]
 
 
+def page_digest(torch, cache, pages) -> bytes:
+    """blake2b of the pool bytes (codes and scales, every layer) of
+    ``pages``, in order."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=16)
+    for p in pages:
+        for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+            if t is not None:
+                h.update(t[:, p].contiguous().view(torch.uint8).cpu()
+                         .numpy().tobytes())
+    return h.digest()
+
+
 def blockwise_check(torch, out, prompts, gen, steps: int = 8,
-                    page_size: int = 0, chunk: int = 0):
+                    page_size: int = 0, chunk: int = 0, prefix: int = 0):
     """Every block of the kernel path, fed the plain path's input hidden
     state, against the plain block: prefill (whole, or in chunks of
     ``chunk`` rows), then ``steps`` teacher-forced decode steps, over the
     linear cache or (``page_size``) over page pools with identical page
-    tables.  The integer matmul kernel is bit-equal to its plain version,
-    so both paths write identical K/V and the caches stay equal; only the
-    attention kernels' summation order differs.  A token row therefore
-    comes out equal to a few ulps, unless such an ulp moved one of its a4
-    activation codes by one step, which changes that row by up to ~10%.
-    Returns (share of rows agreeing to ROW_TOL, rows, (largest row
-    difference, where))."""
+    tables.  With ``prefix`` (a page multiple that the prompts share) the
+    pools share pages as the prefix cache does: row 0 prefills its whole
+    prompt and registers it, the other rows adopt its first ``prefix``
+    tokens' pages and prefill only the rest, resuming at ``prefix``; the
+    shared pages' bytes must stay unchanged to the end.  The integer
+    matmul kernel is bit-equal to its plain version, so both paths write
+    identical K/V and the caches stay equal; only the attention kernels'
+    summation order differs.  A token row therefore comes out equal to a
+    few ulps, unless such an ulp moved one of its a4 activation codes by
+    one step, which changes that row by up to ~10%.  Returns (share of
+    rows agreeing to ROW_TOL, rows, (largest row difference, where))."""
     from repro_torch.serve import kv_cache as kvc
     from repro_torch.models.init import layer
     from repro_torch.serve.quantized import QuantizedModel
@@ -1009,16 +1059,16 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
     tokens = prompts.to(dev)
     b, t = tokens.shape
     pt = None
+    host = prompts.numpy()
     if page_size:
-        stores = [kvc.PagedCache(m, b, 512, page_size) for m in models]
+        stores = [kvc.PagedCache(m, b, 512, page_size,
+                                 prefix_cache=bool(prefix)) for m in models]
         for st in stores:
-            for slot in range(b):
-                if not st.reserve(slot, t + steps):
+            for slot in range(1 if prefix else b):
+                if not st.reserve(slot, t + steps, tokens=host[slot]):
                     raise RuntimeError("blockwise_check: pool too small")
         caches = [st.cache for st in stores]
         pt = caches[0].page_table
-        if not torch.equal(pt, caches[1].page_table):
-            raise RuntimeError("blockwise_check: page tables differ")
         rows = caches[0].num_pages * page_size
     else:
         caches = [m.init_cache(b, 512) for m in models]
@@ -1038,11 +1088,12 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
         compare(models[0]._head(params, ya), models[1]._head(params, yp),
                 where + " logits", "logit")
 
-    chunk = chunk or t
-    for c0 in range(0, t, chunk):
-        c = min(chunk, t - c0)
+    def prefill(c0, active):
+        """One chunk from ``c0`` for the rows ``active`` (the others idle)."""
+        c = min(chunk or t, t - c0)
         offset = torch.full((b,), c0, dtype=torch.int32, device=dev)
-        cl = torch.full((b,), c, dtype=torch.int32, device=dev)
+        cl = torch.zeros((b,), dtype=torch.int32, device=dev)
+        cl[active] = c
         pos = offset[:, None] + torch.arange(c, device=dev)[None]
         if page_size:
             write = kvc.paged_chunk_write_index(kvc.chunk_write_dest(
@@ -1055,9 +1106,32 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
             ya, yp = (m._block_prefill_chunk(lp, x, m._kv_entries(cc, i), pos,
                                              offset, cl, write, pt)
                       for m, cc in zip(models, caches))
-            compare(ya, yp, f"prefill rows {c0}.. layer {i}")
+            compare(ya[active], yp[active], f"prefill rows {c0}.. layer {i}")
             x = yp
-    logits(ya[:, -1:], yp[:, -1:], "prefill")
+        return ya[active, -1:], yp[active, -1:]
+
+    if prefix:
+        for c0 in range(0, t, chunk):
+            prefill(c0, [0])
+        for st in stores:
+            st.register_prefix(0, host[0])
+            for slot in range(1, b):
+                if not st.reserve(slot, t + steps, tokens=host[slot]):
+                    raise RuntimeError("blockwise_check: pool too small")
+                if st.matched_tokens(slot) != prefix:
+                    raise RuntimeError(f"blockwise_check: row {slot} matched "
+                                       f"{st.matched_tokens(slot)} tokens, "
+                                       f"not {prefix}")
+        shared = stores[0].allocator.owned[0][:prefix // page_size]
+        digest = [page_digest(torch, cc, shared) for cc in caches]
+        for c0 in range(prefix, t, chunk):
+            last = prefill(c0, list(range(1, b)))
+    else:
+        for c0 in range(0, t, chunk or t):
+            last = prefill(c0, list(range(b)))
+    if page_size and not torch.equal(pt, caches[1].page_table):
+        raise RuntimeError("blockwise_check: page tables differ")
+    logits(*last, "prefill")
     cur = torch.full((b,), t, dtype=torch.int32, device=dev)
     for step in range(steps):
         x = params["embed"][gen[:, step:step + 1].to(dev).long()]
@@ -1082,6 +1156,8 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
         models[1]._kv_entries(caches[1], slice(None))))
     if not same:
         raise RuntimeError("the kernel and plain paths wrote different K/V")
+    if prefix and [page_digest(torch, cc, shared) for cc in caches] != digest:
+        raise RuntimeError("blockwise_check: a shared page was written")
     return ({k: v["agree"] / v["rows"] for k, v in stats.items()},
             {k: v["rows"] for k, v in stats.items()}, tuple(worst))
 
@@ -1231,6 +1307,371 @@ def serve_kv4(torch, params) -> dict:
     del out
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# 9. the Engine contract at llama-7b width: prefix sharing, the failure
+#    model, sampling
+# ---------------------------------------------------------------------------
+
+# (a) 4 requests share a 320-token system prompt and add 64-token suffixes;
+# pages and chunks of 64, so a prompt of 384 fills 6 pages and a match is
+# capped at 5 (one token must stay novel); 7 pages a request hold the trace
+# (c) runs phase 5b's pool of 10 pages
+P9 = dict(system=320, suffix=64, page=64, chunk=64, max_new=32, max_len=512,
+          short_new=8, tight_pages=10,
+          sample=dict(temperature=0.8, top_k=40, seed=0))
+
+
+def card_name(torch) -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def counted(counts: dict):
+    """Zero the launch counters, run the block, add them to ``counts``."""
+    from repro_torch.kernels import _lib
+    _lib.reset_launches()
+    yield
+    for name, n in _lib.LAUNCHES.items():
+        counts[name] += n
+
+
+def _drain(eng, counts, prompts):
+    """Submit ``prompts`` to an engine through its entry points and run it
+    dry, counting launches; returns (requests, seconds)."""
+    with counted(counts):
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run(max_steps=2000)
+        return reqs, time.perf_counter() - t0
+
+
+def _p9_run(model, params, counts, prompts, faults=None, **cfg):
+    """One run of a fresh Engine; returns (engine, requests, seconds)."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    eng = Engine(model, params, ServeConfig(**cfg), faults=faults)
+    return (eng, *_drain(eng, counts, prompts))
+
+
+def _trace_pages(prompts) -> int:
+    """Pages that hold every request of a trace at its final length."""
+    return len(prompts) * (-(-(len(prompts[0]) + P9["max_new"] + 1)
+                             // P9["page"]))
+
+
+def _conserved(eng, tag) -> None:
+    eng._kv.verify()
+    al = eng._kv.allocator
+    if al.num_free != al.num_pages or any(al.owned):
+        raise RuntimeError(f"{tag}: pages leaked")
+
+
+def _tok_s(reqs, secs) -> str:
+    n = sum(len(r.out_tokens) for r in reqs)
+    return f"{n} tokens in {secs:.3f} s = {n / secs:.2f} tok/s"
+
+
+def prefix_prompts(vocab: int, n: int = 4) -> list:
+    import numpy as np
+    rng = np.random.default_rng(9)
+    system = rng.integers(0, vocab, P9["system"])
+    return [np.concatenate([system, rng.integers(0, vocab, P9["suffix"])])
+            for _ in range(n)]
+
+
+def engine_contract(torch, params, prompts3, greedy3) -> dict:
+    """Phase 9 on phase 3's tree: (a) prefix sharing, (b) the failure
+    model, (c) sampling; returns the launches of its engine runs."""
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    args = serve.build_parser().parse_args(
+        SERVE_ARGS + ["--layers", str(LAYERS)])
+    cfg, qcfg, params, model, _ = serve.build_model(args, params)
+    out = {"cfg": cfg, "qcfg": qcfg, "params": params, "model": model}
+    card = card_name(torch)
+    counts = {name: 0 for name in KERNELS}
+    base = prefix_phase(torch, out, counts, card)
+    faults_phase(torch, out, counts, card, base, prompts3)
+    sampling_phase(torch, out, counts, card, prompts3, greedy3)
+    log(f"[engine] phase 9 wall time {time.perf_counter() - t_phase:.1f} s "
+        f"({card}); launches {counts}")
+    return counts
+
+
+def prefix_phase(torch, out, counts, card) -> list:
+    """(a): the no-sharing streams, then a cold and a replay wave on one
+    prefix-sharing engine; returns the no-sharing streams."""
+    import numpy as np
+    t0 = time.perf_counter()
+    model, params = out["model"], out["params"]
+    prompts = prefix_prompts(out["cfg"].vocab_size)
+    n_pages = _trace_pages(prompts)
+    paged = dict(max_batch=len(prompts), max_len=P9["max_len"],
+                 max_new=P9["max_new"], paged=True, page_size=P9["page"],
+                 prefill_chunk=P9["chunk"], num_pages=n_pages)
+    eng, reqs, secs = _p9_run(model, params, counts, prompts, **paged)
+    base = [r.out_tokens for r in reqs]
+    log(f"[prefix] no-sharing paged engine ({n_pages} pages of "
+        f"{P9['page']}, chunks of {P9['chunk']}): {_tok_s(reqs, secs)} "
+        f"({card})")
+    from repro_torch.serve.engine import Engine, ServeConfig
+    eng = Engine(model, params, ServeConfig(prefix_cache=True, **paged))
+    kv = eng._kv
+    digests, matched = {}, []
+    register, reserve = kv.register_prefix, kv.reserve
+
+    def spy_register(slot, toks):
+        before = set(kv._page_hash)
+        register(slot, toks)
+        for p in set(kv._page_hash) - before:
+            digests[p] = page_digest(torch, kv.cache, [p])
+
+    def spy_reserve(slot, length, tokens=None):
+        ok = reserve(slot, length, tokens=tokens)
+        if ok:
+            matched.append(kv.matched_tokens(slot))
+        return ok
+
+    kv.register_prefix, kv.reserve = spy_register, spy_reserve
+    waves = {}
+    for wave in ("cold", "replay"):
+        st0 = dict(eng.prefix_stats)
+        del matched[:]
+        reqs, secs = _drain(eng, counts, prompts)
+        _conserved(eng, f"prefix {wave}")
+        st = {k: eng.prefix_stats[k] - st0[k] for k in st0}
+        streams = [r.out_tokens for r in reqs]
+        log(f"[prefix] {wave} wave: {_tok_s(reqs, secs)} ({card}); "
+            f"{st['hits']}/{st['lookups']} hits, matched per request "
+            f"{matched}, {st['matched_tokens']} tokens adopted, "
+            f"{st['prefilled_tokens']} prefilled; streams equal the "
+            f"no-sharing engine's: {streams == base}; verify() passed")
+        if streams != base:
+            raise RuntimeError(f"prefix {wave}: streams differ from the "
+                               f"no-sharing engine's")
+        waves[wave] = (st, list(matched))
+    n_full = len(prompts[0]) // P9["page"]
+    cap = (len(prompts[0]) - 1) // P9["page"] * P9["page"]
+    st, per = waves["replay"]
+    want = {"lookups": len(prompts), "hits": len(prompts),
+            "matched_tokens": len(prompts) * cap,
+            "prefilled_tokens": len(prompts) * (len(prompts[0]) - cap)}
+    if st != want or per != [cap] * len(prompts):
+        raise RuntimeError(f"prefix replay: stats {st}, matched {per}; "
+                           f"expected {want}, {cap} each (capped at "
+                           f"{cap // P9['page']} of {n_full} full pages)")
+    live = {p: d for p, d in digests.items() if p in kv._page_hash}
+    changed = [p for p, d in live.items()
+               if page_digest(torch, kv.cache, [p]) != d]
+    log(f"[prefix] {len(live)} registered pages still mapped at drain, "
+        f"blake2b of their pool bytes unchanged since register_prefix: "
+        f"{not changed}")
+    if changed or len(live) < cap // P9["page"]:
+        raise RuntimeError(f"prefix: shared pages {changed} were written")
+    del eng, kv
+    prompts_t = torch.from_numpy(np.stack(prompts))
+    gen = torch.tensor(base, dtype=torch.int32)
+    gate_blockwise(torch, "prefix", out, prompts_t, gen, steps=4,
+                   page_size=P9["page"], chunk=P9["chunk"], prefix=cap)
+    log(f"[prefix] part (a) wall time {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return base
+
+
+def faults_phase(torch, out, counts, card, base, prompts3) -> None:
+    """(b): NaN quarantine under live sharing, then one short trace per
+    fault (deadline, callback, cancel in each phase, allocator faults up
+    to the watchdog), then the unscrubbed-page report."""
+    from repro_torch.serve import faults as flt
+    from repro_torch.serve.engine import Engine, RequestStatus, ServeConfig
+    t0 = time.perf_counter()
+    model, params = out["model"], out["params"]
+    prompts = prefix_prompts(out["cfg"].vocab_size)
+    plan = flt.FaultPlan(flt.Fault(point=flt.NAN_LOGITS, rid=2,
+                                   after_step=1 << 30))
+    eng = Engine(model, params, ServeConfig(
+        max_batch=len(prompts), max_len=P9["max_len"], max_new=P9["max_new"],
+        paged=True, page_size=P9["page"], prefill_chunk=P9["chunk"],
+        num_pages=_trace_pages(prompts), prefix_cache=True,
+        integrity_checks=True), faults=plan)
+    (writer,), _ = _drain(eng, counts, prompts[:1])
+    # the three readers adopt the writer's prompt pages in one step (live
+    # sharing, refcount 3); the fault fires a few decode steps after their
+    # three final chunks
+    plan.faults[0].after_step = eng._step_idx + 3 + min(8, P9["max_new"] // 4)
+    readers, _ = _drain(eng, counts, prompts[1:])
+    victim = readers[1]
+    matched0 = eng.prefix_stats["matched_tokens"]
+    (late,), _ = _drain(eng, counts, prompts[2:3])
+    late_matched = eng.prefix_stats["matched_tokens"] - matched0
+    _conserved(eng, "quarantine")
+    S = RequestStatus
+    # each co-reader names the reader whose quarantine failed it: the
+    # victim, or (the quarantine recurses, as the reference's does) a
+    # co-reader that failed before it
+    named = {int(r.error.rsplit("rid=", 1)[1].split()[0]) for r in readers
+             if r is not victim and r.error and "poisoned by rid=" in r.error}
+    log(f"[faults] NaN in rid {victim.rid} (a reader of 3 sharing the "
+        f"writer's {P9['system'] // P9['page']} prompt pages) at step "
+        f"{plan.log[0][0] if plan.log else None}: writer {writer.status.name}"
+        f"; readers {[(r.rid, r.status.name, len(r.out_tokens), r.error) for r in readers]}"
+        f"; late resubmission {late.status.name}, {late_matched} tokens "
+        f"matched (the quarantine unmapped the prefix); pool conserved "
+        f"under integrity checks")
+    ok = (writer.status is S.COMPLETED and writer.out_tokens == base[0]
+          and victim.status is S.FAILED_NAN and "non-finite" in victim.error
+          and all(r.status is S.FAILED_NAN for r in readers)
+          and named <= {r.rid for r in readers}
+          and victim.rid in named and len(named) == len(readers) - 1
+          and all(r.out_tokens == base[i + 1][:len(r.out_tokens)]
+                  for i, r in enumerate(readers))
+          and late.status is S.COMPLETED and late.out_tokens == base[2]
+          and late_matched == 0)
+    if not ok:
+        raise RuntimeError("faults: the NaN quarantine under sharing broke "
+                           "its contract")
+    short_traces(torch, out, counts, card, prompts3)
+    unscrubbed_report(torch, card)
+    log(f"[faults] part (b) wall time {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+
+
+def short_traces(torch, out, counts, card, prompts) -> None:
+    """One short trace per remaining fault on phase 3's prompts (batch 2,
+    pages and chunks of 64, 8 new tokens): the surviving streams must
+    equal the unfaulted run's."""
+    from repro_torch.serve import faults as flt
+    from repro_torch.serve.engine import Engine, RequestStatus, ServeConfig
+    S = RequestStatus
+    model, params = out["model"], out["params"]
+    cfg = dict(max_batch=2, max_len=P9["max_len"], max_new=P9["short_new"],
+               paged=True, page_size=P9["page"], prefill_chunk=P9["chunk"],
+               integrity_checks=True, watchdog_steps=4)
+    _, reqs, _ = _p9_run(model, params, counts, prompts, **cfg)
+    want = [r.out_tokens for r in reqs]
+
+    def faulted(tag, fault, expect):
+        plan = flt.FaultPlan(fault)
+        eng, reqs, secs = _p9_run(model, params, counts, prompts, plan, **cfg)
+        _conserved(eng, tag)
+        got = [(r.status, r.out_tokens) for r in reqs]
+        bad = [i for i, (st, toks) in enumerate(got)
+               if st is not expect.get(i, S.COMPLETED)
+               or (st is S.COMPLETED and toks != want[i])
+               or toks != want[i][:len(toks)]]
+        log(f"[faults] {tag}: {[(st.name, len(t)) for st, t in got]}, "
+            f"{plan.fired()} firing(s), survivors equal the unfaulted "
+            f"run: {not bad} ({secs:.2f} s, {card})")
+        if bad:
+            raise RuntimeError(f"faults {tag}: requests {bad} broke the "
+                               f"contract")
+        return reqs
+
+    faulted("deadline", flt.Fault(point=flt.DEADLINE, rid=1, after_step=3),
+            {1: S.FAILED_DEADLINE})
+    faulted("callback", flt.Fault(point=flt.CALLBACK_RAISE, rid=2,
+                                  after_step=1), {2: S.FAILED_CALLBACK})
+    faulted("alloc x3", flt.Fault(point=flt.ALLOC_FAIL, count=3,
+                                  after_step=1), {})
+    reqs = faulted("alloc to the watchdog",
+                   flt.Fault(point=flt.ALLOC_FAIL, count=0),
+                   {i: S.FAILED_POOL for i in range(len(prompts))})
+    if not all("watchdog" in r.error for r in reqs):
+        raise RuntimeError("faults: the watchdog did not end the starved "
+                           "requests")
+    # cancel in each phase: queued, mid-prefill, decoding
+    eng = Engine(model, params, ServeConfig(**cfg))
+    with counted(counts):
+        reqs = [eng.submit(p) for p in prompts]
+        eng.step()                   # rid 0 mid-prefill, rid 1 waits in slot
+        phases = {"queued": eng.cancel(reqs[3].rid)}
+        eng.step()                   # rid 0 decodes, rid 1 still mid-prefill
+        phases["mid-prefill"] = (eng._prefill_prog[1] is not None
+                                 and eng.cancel(reqs[1].rid))
+        phases["decoding"] = (eng._prefill_prog[0] is None
+                              and 0 < len(reqs[0].out_tokens) < cfg["max_new"]
+                              and eng.cancel(reqs[0].rid))
+        eng.run(max_steps=200)
+    _conserved(eng, "cancel")
+    log(f"[faults] cancel in each phase {phases}: "
+        f"{[(r.status.name, len(r.out_tokens)) for r in reqs]} ({card})")
+    if not (all(phases.values())
+            and [r.status for r in reqs] == [S.CANCELLED, S.CANCELLED,
+                                              S.COMPLETED, S.CANCELLED]
+            and reqs[2].out_tokens == want[2]
+            and reqs[0].out_tokens == want[0][:len(reqs[0].out_tokens)]):
+        raise RuntimeError("faults: cancel broke the contract")
+
+
+def unscrubbed_report(torch, card) -> None:
+    """Information, not a gate: a NaN scale left at masked positions of a
+    recycled kv8 page, read by its next tenant (10 valid tokens of 64)
+    through the paged decode kernel and through its plain version."""
+    import numpy as np
+    from repro_torch.kernels import flash_decode as fd
+    rng = np.random.default_rng(0)
+    hkv, d, ps = 32, 128, 64
+    k, v = (torch.from_numpy(rng.integers(-127, 128, (2, ps, hkv, d)).astype(
+        np.int8)).cuda() for _ in range(2))
+    ks, vs = (torch.from_numpy((rng.random((2, ps, hkv)) * 0.02 + 1e-3)
+                               .astype(np.float32)).cuda() for _ in range(2))
+    for s in (ks, vs):
+        s[1, 10:] = float("nan")             # stale poison past the tenant
+    q = torch.from_numpy(rng.standard_normal((1, hkv, 1, d)).astype(
+        np.float32)).cuda()
+    pt = torch.tensor([[1]], dtype=torch.int32, device="cuda")
+    cur = torch.tensor([10], dtype=torch.int32, device="cuda")
+    kern = fd.flash_decode_paged(q, k, v, pt, cur, ks, vs)
+    plain = fd.flash_decode_paged_plain(q, k, v, pt, cur, ks, vs)
+    log(f"[faults] unscrubbed recycled page (NaN scales at positions 10-63, "
+        f"the tenant's length 10; reported, not gated): kernel output finite "
+        f"{bool(torch.isfinite(kern).all())}, plain version output finite "
+        f"{bool(torch.isfinite(plain).all())} ({card})")
+
+
+def sampling_phase(torch, out, counts, card, prompts, greedy) -> None:
+    """(c): phase 3's requests sampled at temperature 0.8, top-k 40, seed 0
+    over the linear engine (twice) and phase 5b's preempting 10-page pool;
+    top_k = 1 against phase 3's greedy streams."""
+    t0 = time.perf_counter()
+    model, params = out["model"], out["params"]
+    base = dict(max_batch=len(prompts), max_len=P9["max_len"],
+                max_new=P9["max_new"])
+    runs = {}
+    for tag, extra in (
+            ("linear", P9["sample"]), ("linear again", P9["sample"]),
+            ("paged", dict(P9["sample"], paged=True, page_size=P9["page"],
+                           num_pages=P9["tight_pages"],
+                           prefill_chunk=P9["chunk"])),
+            ("top_k 1", dict(P9["sample"], top_k=1))):
+        eng, reqs, secs = _p9_run(model, params, counts, prompts,
+                                  **base, **extra)
+        runs[tag] = [r.out_tokens for r in reqs]
+        log(f"[sample] {tag} {extra}: {_tok_s(reqs, secs)}, preemptions "
+            f"{eng.preemptions} ({card})")
+        if tag.startswith("paged"):
+            preempted = eng.preemptions
+    lin = runs["linear"]
+    same = sum(a == b for s, t in zip(runs["paged"], lin)
+               for a, b in zip(s, t))
+    checks = {"linear == paged": runs["paged"] == lin,
+              "paged preempted": preempted >= 1,
+              "linear reproduces": runs["linear again"] == lin,
+              "top_k 1 == phase 3 greedy": runs["top_k 1"] == greedy,
+              "sampled != greedy": lin != greedy}
+    log(f"[sample] {checks}; paged vs linear {same} of "
+        f"{sum(map(len, lin))} tokens equal; part (c) wall time "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    if not all(checks.values()):
+        raise RuntimeError(f"sample: {[k for k, v in checks.items() if not v]}"
+                           f" failed")
 
 
 # ---------------------------------------------------------------------------

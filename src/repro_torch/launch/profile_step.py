@@ -7,8 +7,9 @@
 Builds the serving model as ``repro_torch.launch.serve`` does (seeded
 random weights, RTN-packed), prefills ``--max-batch`` prompts, warms up,
 then runs ``--steps`` greedy decode steps twice: timed by the host clock
-alone, and under ``torch.profiler``.  Each step ends in the host readback
-of the sampled tokens, as the Engine's does.  With ``--paged`` the
+alone, and under ``torch.profiler``.  Each step ends in one host readback
+of the sampled tokens and their rows' finiteness flags, as the Engine's
+does.  With ``--paged`` the
 prefilled cache is spliced into page pools and every step first backs its
 token writes with pages, as the Engine's paged step does.  Prints the
 step's wall time, the device's busy time per step (the sum of its kernel
@@ -68,8 +69,10 @@ def main(argv=None) -> dict:
                         raise SystemExit("--num-pages too small")
             seq_len += 1
             lg, cache = model.decode_step(params, tok, cache)
-            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True).to(torch.int32)
-            tok.tolist()
+            nxt = torch.argmax(lg[:, -1], dim=-1)
+            ok = torch.isfinite(lg[:, -1]).all(dim=-1)
+            torch.stack((nxt, ok.to(nxt.dtype))).tolist()
+            tok = nxt.to(torch.int32)[:, None]
         return (time.perf_counter() - t0) / n
 
     steps(4)                                   # warm-up

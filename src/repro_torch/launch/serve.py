@@ -15,7 +15,16 @@ widths stay the architecture's.  ``--kvbits`` takes 4, 8 or 16;
 0 = as many pages as the linear cache holds) and ``--prefill-chunk N``
 admits prompts in chunks of N tokens.  ``--device`` defaults to
 ``cuda`` and raises when no CUDA device exists; ``--device cpu`` runs the
-plain versions of the kernels.
+plain versions of the kernels.  ``--ttl-s`` gives every request a
+wall-clock deadline and ``--max-queue`` bounds the admission queue (a
+submit past it is rejected, not queued); the last line reports the
+requests' terminal statuses beside the preemptions.
+
+``--prefix-cache`` (needs ``--paged``; chunks default to ``--page-size``)
+then serves the same prompts twice, a cold wave and a replay wave, on one
+engine with refcounted prefix-page sharing and a pool sized to the whole
+trace (or ``--num-pages``), and prints the prefix statistics and each
+wave's greedy agreement with the paged run.
 
 Other weights: ``--ckpt DIR`` reads a float tree (npz layout of
 ``train/checkpoints.py``) and packs it on the RTN grid; ``--calibrate``
@@ -46,7 +55,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.calibrate import load_float_params
 from repro_torch.models import transformer
 from repro_torch.models.init import init_block, init_lm, init_top, stack_layers
-from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.engine import Engine, QueueFull, ServeConfig
+from repro_torch.serve.kv_cache import pages_for
 from repro_torch.serve.quantized import (QuantizedModel, quantize_layers,
                                          quantize_lm_packed)
 from repro_torch.train import checkpoints
@@ -122,6 +132,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "page_size))")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="> 0: chunked admission, one chunk per step")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="then serve the prompts twice (cold, replay) on "
+                         "one engine sharing prompt-prefix pages by "
+                         "refcount (needs --paged; chunks default to "
+                         "--page-size)")
+    ap.add_argument("--ttl-s", type=float, default=0.0,
+                    help="per-request wall-clock deadline in seconds "
+                         "(0 = none): expired requests end FAILED_DEADLINE")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound on pending requests (0 = unbounded); a "
+                         "submit past it ends REJECTED_QUEUE_FULL")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     src = ap.add_mutually_exclusive_group()
@@ -157,19 +178,38 @@ def build_model(args: argparse.Namespace, params: Optional[dict] = None):
     return cfg, qcfg, params, QuantizedModel(cfg, qcfg, device=device), fake
 
 
+def serve_config(args: argparse.Namespace) -> ServeConfig:
+    return ServeConfig(
+        max_batch=args.max_batch, max_len=args.max_len,
+        max_new=args.max_new, paged=args.paged, page_size=args.page_size,
+        num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
+        default_ttl_s=args.ttl_s, max_queue=args.max_queue)
+
+
+def submit_all(engine: Engine, prompts: list) -> list:
+    """Submit every prompt; a QueueFull rejection is no error (the request
+    is terminal, REJECTED_QUEUE_FULL, and counted in the statuses)."""
+    reqs = []
+    for p in prompts:
+        try:
+            reqs.append(engine.submit(p))
+        except QueueFull as e:
+            reqs.append(e.request)
+    return reqs
+
+
 def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     """Build, run and time one serving session; returns the engine, its
     requests and the measurements.  ``params``: as in :func:`build_model`."""
+    if args.prefix_cache and not args.paged:
+        raise ValueError("--prefix-cache shares pages of the paged KV "
+                         "cache: add --paged")
     cfg, qcfg, params, model, fake = build_model(args, params)
-    engine = Engine(model, params, ServeConfig(
-        max_batch=args.max_batch, max_len=args.max_len,
-        max_new=args.max_new, paged=args.paged, page_size=args.page_size,
-        num_pages=args.num_pages, prefill_chunk=args.prefill_chunk))
+    engine = Engine(model, params, serve_config(args))
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
                for _ in range(args.requests)]
-    for p in prompts:
-        engine.submit(p)
+    submit_all(engine, prompts)
     # each step ends in a host readback of the sampled tokens, so the host
     # clock around a step measures the step's device work too
     step_s = []
@@ -186,7 +226,39 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
             "prompts": prompts,
             "seconds": seconds, "generated": generated,
             "tokens_per_s": generated / seconds, "step_seconds": step_s,
-            "preemptions": engine.preemptions, **engine.memory_report()}
+            "preemptions": engine.preemptions,
+            "statuses": engine.status_counts(), **engine.memory_report()}
+
+
+def serve_prefix(args: argparse.Namespace, out: dict) -> dict:
+    """``--prefix-cache``: the prompts of ``out`` (a paged run) served as a
+    cold and a replay wave on one prefix-sharing engine whose pool holds
+    the whole trace, so the replay adopts the pages the cold wave left.
+    Returns each wave's requests and seconds, the prefix statistics and the
+    engine."""
+    num_pages = args.num_pages or args.requests * pages_for(
+        args.prompt_len + args.max_new + 1, args.page_size)
+    scfg = dataclasses.replace(
+        serve_config(args), prefix_cache=True, num_pages=num_pages,
+        prefill_chunk=args.prefill_chunk or args.page_size)
+    engine = Engine(out["model"], out["params"], scfg)
+    waves = {}
+    for wave in ("cold", "replay"):
+        t0 = time.perf_counter()
+        reqs = submit_all(engine, out["prompts"])
+        engine.run()
+        waves[wave] = (reqs, time.perf_counter() - t0)
+    return {"waves": waves, "stats": dict(engine.prefix_stats),
+            "engine": engine}
+
+
+def agreement(a: list, b: list) -> float:
+    """Share of equal tokens over the common length of paired streams."""
+    pairs = [(x, y) for x, y in zip(a, b) if x and y]
+    if not pairs:
+        return float("nan")
+    return float(np.mean([np.mean(np.array(x[:len(y)]) == np.array(y[:len(x)]))
+                          for x, y in pairs]))
 
 
 @torch.no_grad()
@@ -231,8 +303,6 @@ def main(argv=None) -> dict:
           f"{steps[0]:.4f} s; decode step median "
           f"{statistics.median(steps[1:] or steps) * 1e3:.2f} ms over "
           f"{len(steps) - 1} steps")
-    print(f"[serve] weight bytes {out['weight_bytes']}, KV bytes "
-          f"{out['kv_bytes']}, preemptions {out['preemptions']}")
     if out["fake"] is not None:
         packed, sim = packed_and_fake_logits(
             out["model"], out["params"], out["fake"], out["prompts"],
@@ -241,6 +311,22 @@ def main(argv=None) -> dict:
         print(f"[serve] calibrated packed vs fake-quant simulation, "
               f"teacher-forced on the served streams: greedy agreement "
               f"{agree:.4f} over {sim.shape[0] * sim.shape[1]} tokens")
+    if args.prefix_cache:
+        px = serve_prefix(args, out)
+        base = [r.out_tokens for r in out["requests"]]
+        for wave, (reqs, secs) in px["waves"].items():
+            n = sum(len(r.out_tokens) for r in reqs)
+            print(f"[serve-prefix] {wave} wave: {n} tokens in {secs:.3f} s "
+                  f"= {n / secs:.1f} tok/s; greedy agreement with the paged "
+                  f"run {agreement(base, [r.out_tokens for r in reqs]):.4f}")
+        st = px["stats"]
+        print(f"[serve-prefix] {st['hits']}/{st['lookups']} lookups hit, "
+              f"{st['matched_tokens']} prompt tokens adopted from resident "
+              f"pages, {st['prefilled_tokens']} prefilled")
+        out["prefix"] = px
+    print(f"[serve] weight bytes {out['weight_bytes']}, KV bytes "
+          f"{out['kv_bytes']}, preemptions {out['preemptions']}, statuses "
+          f"{out['statuses']}")
     return out
 
 

@@ -17,7 +17,14 @@ def apply_norm(params: dict, x: torch.Tensor, kind: str,
         raise NotImplementedError(f"norm={kind!r}: the port has rmsnorm "
                                   f"only (layernorm comes with OPT)")
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    # the mean accumulates in float64: a float32 reduction on the card sums
+    # in an order set by the tensor's shape, so a row normalised inside a
+    # prefill chunk could differ in its last bit from the same row alone
+    # (decode), and at a4 such a bit can move an activation code.  Summed
+    # in float64, the order's effect lies far below float32's rounding step
+    # and the rounded mean is the same for every row count.
+    var = torch.mean(xf * xf, dim=-1, keepdim=True,
+                     dtype=torch.float64).to(torch.float32)
     out = xf * torch.rsqrt(var + eps) * params["scale"].to(torch.float32)
     if "bias" in params:
         out = out + params["bias"].to(torch.float32)

@@ -18,22 +18,37 @@ list and per-page owner sets; :class:`PagedCache` and :class:`LinearCache`
 pair a device cache with reserve / append / splice / free, so the Engine
 never touches cache ranks.  The port updates cache tensors in place.
 
+Prefix sharing: full pages are immutable once written, so
+:class:`PagedCache` (``prefix_cache=True``) keeps a chain-hash-of-(token
+ids so far, kv config) -> page id map over them.  ``reserve(slot, length,
+tokens=...)`` adopts the longest resident full-page prefix (refcounted
+shares of the same pool pages), publishes ``lens`` at the matched length
+and reports it, so chunked prefill resumes at the first novel token.  A
+page returns to the free list only at refcount 0, and even then its map
+entry survives (at the free list's front, recycled last).  The partly
+filled tail page is never shared and every sequence keeps at least one
+exclusive page, so no write ever lands in a shared page: the decode step
+writes a droppable token at ``lens`` ahead of a mid-prefill slot, which is
+its first exclusive page.
+
 Writes: the reference's scatters drop out-of-bounds destinations
 silently, while PyTorch indexing wraps -1 and raises past the end.  So the
 port computes the reference's destinations and writes only the valid
 entries: a chunk's in-bounds rows are found with one host sync per chunk
 (shared by every layer); a decode token write needs none (see
-:func:`token_write_index`).  Prefix caching (``adopt``, page hashing) is not
-ported yet.
+:func:`token_write_index`).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.quantize_pack import KV_BLOCK, kv4_check_head_dim
+from repro_torch.serve import faults as flt
 
 SEQ_KEYS = ("k", "v", "k_scale", "v_scale")   # entries with a sequence axis
 
@@ -224,14 +239,17 @@ class PageIntegrityError(RuntimeError):
 class PageAllocator:
     """Host-side refcounted free list over the page pool.
 
-    ``owned[slot]`` lists the pool pages backing a slot in logical order;
+    ``owned[slot]`` lists the pool pages backing a slot in logical order
+    (under prefix sharing one page may sit in several slots' lists);
     ``owners[page]`` is the inverse map (the set of slots referencing a
     page: its refcount) and ``in_free[page]`` mirrors free-list membership,
     so every integrity check is O(1) per page.  The free list is a LIFO
-    stack: recently freed pages are reused first."""
+    stack: recently freed pages are reused first, while refcount-0 pages
+    the store still has prefix-mapped are parked at its front, recycled
+    last and matchable as long as the pool allows."""
 
     def __init__(self, num_pages: int, max_pages_per_seq: int,
-                 max_batch: int):
+                 max_batch: int, faults: Optional[flt.FaultPlan] = None):
         self.num_pages = num_pages
         self.max_pages_per_seq = max_pages_per_seq
         self.free_list: list[int] = list(range(num_pages - 1, -1, -1))
@@ -239,6 +257,7 @@ class PageAllocator:
         self.owners: list[set[int]] = [set() for _ in range(num_pages)]
         self.in_free: list[bool] = [True] * num_pages
         self.peak_in_use = 0
+        self.faults = faults
 
     @property
     def num_free(self) -> int:
@@ -248,9 +267,19 @@ class PageAllocator:
     def num_in_use(self) -> int:
         return self.num_pages - len(self.free_list)
 
+    def refcount(self, page: int) -> int:
+        return len(self.owners[page])
+
+    def can_allocate(self, n: int) -> bool:
+        return n <= len(self.free_list)
+
     def allocate(self, slot: int, n: int) -> Optional[list[int]]:
-        """Grow ``slot`` by ``n`` fresh pages; None (state unchanged) if the
-        pool or the slot's page table cannot hold them."""
+        """Grow ``slot`` by ``n`` fresh (refcount-1) pages; None (state
+        unchanged) if the pool or the slot's page table cannot hold them,
+        or an ``ALLOC_FAIL`` fault fires."""
+        if self.faults is not None and self.faults.fires(
+                flt.ALLOC_FAIL, slot=slot, n=n):
+            return None
         if n > len(self.free_list):
             return None
         if len(self.owned[slot]) + n > self.max_pages_per_seq:
@@ -263,13 +292,30 @@ class PageAllocator:
         self.peak_in_use = max(self.peak_in_use, self.num_in_use)
         return pages
 
+    def adopt(self, slot: int, pages: list[int]) -> bool:
+        """Take refcounted shares of resident pages (prefix reuse): live
+        pages gain a reader, refcount-0 pages still on the free list are
+        taken off it.  All or nothing: False (state unchanged) when the
+        slot's page table cannot hold them."""
+        if len(self.owned[slot]) + len(pages) > self.max_pages_per_seq:
+            return False
+        for p in pages:
+            if self.in_free[p]:
+                self.free_list.remove(p)
+                self.in_free[p] = False
+            self.owners[p].add(slot)
+        self.owned[slot].extend(pages)
+        self.peak_in_use = max(self.peak_in_use, self.num_in_use)
+        return True
+
     def exclusive_pages(self, slot: int) -> int:
         """Pages only ``slot`` references: what ``free(slot)`` returns."""
         return sum(1 for p in self.owned[slot] if self.owners[p] == {slot})
 
-    def free(self, slot: int) -> int:
+    def free(self, slot: int, cached: frozenset = frozenset()) -> int:
         """Drop ``slot``'s reference on every page it owns; pages reaching
-        refcount 0 return to the free list.  Raises
+        refcount 0 return to the free list, the ``cached`` ones (still
+        prefix-mapped by the store) at its front.  Raises
         :class:`PageIntegrityError` on a double free (an owned page already
         on the free list) or a page whose refcounts do not credit
         ``slot``."""
@@ -292,7 +338,8 @@ class PageAllocator:
             if not self.owners[p]:
                 self.in_free[p] = True
                 dying.append(p)
-        self.free_list.extend(reversed(dying))
+        self.free_list.extend(reversed([p for p in dying if p not in cached]))
+        self.free_list[:0] = [p for p in dying if p in cached]
         self.owned[slot] = []
         return len(pages)
 
@@ -302,7 +349,9 @@ class PageAllocator:
 # ---------------------------------------------------------------------------
 
 class LinearCache:
-    """The contiguous ``max_batch x max_len`` slot table behind the Engine."""
+    """The contiguous ``max_batch x max_len`` slot table behind the Engine.
+    Slots share nothing, so the prefix-sharing calls of the store API are
+    no-ops here."""
 
     def __init__(self, model, max_batch: int, max_len: int):
         self.cache = model.init_cache(max_batch, max_len)
@@ -321,14 +370,25 @@ class LinearCache:
         return (f"needs {length} cache tokens but max_len is "
                 f"{self.max_len} — raise --max-len")
 
-    def reserve(self, slot: int, length: int) -> bool:
-        """Linear slots are preallocated; only the capacity check applies."""
+    def reserve(self, slot: int, length: int,
+                tokens: Optional[np.ndarray] = None) -> bool:
+        """Linear slots are preallocated; only the capacity check applies
+        (``tokens``, the prefix-sharing hint, is ignored)."""
         return length <= self.max_len
+
+    def matched_tokens(self, slot: int) -> int:
+        return 0
+
+    def register_prefix(self, slot: int, tokens: np.ndarray) -> None:
+        """No page map to publish into."""
 
     def ensure_append(self, slot: int, length: int) -> bool:
         """Capacity for writing token ``length`` exists up front (a write
         past ``max_len`` drops)."""
         return True
+
+    def owned_pages(self, slot: int) -> int:
+        return 0
 
     def reclaimable_pages(self, slot: int) -> int:
         return 0
@@ -350,6 +410,22 @@ class LinearCache:
         self.cache["len"][slot] = 0
         return 0
 
+    def scrub(self, slot: int) -> None:
+        """Zero the slot's sequence-axis entries before reuse.  The
+        attention kernels mask scores past ``len``, but masked rows still
+        enter ``p @ v`` with weight 0.0, and ``0.0 * NaN = NaN``: a
+        non-finite value left in a retired slot would poison its next
+        tenant."""
+        for key in SEQ_KEYS:
+            if key in self.cache:
+                self.cache[key][:, slot] = 0
+
+    def quarantine(self, slot: int) -> list[int]:
+        """NaN quarantine: linear slots share nothing, so scrub the slot
+        and report no co-readers."""
+        self.scrub(slot)
+        return []
+
     def verify(self) -> None:
         """Linear slots have no shared bookkeeping to corrupt."""
 
@@ -357,16 +433,33 @@ class LinearCache:
         return _nbytes(self.cache.values())
 
 
+def dtype_name(dtype) -> str:
+    """The reference's name of a storage dtype (``int8``, ``float32``,
+    ``bfloat16``), for the prefix hash seed."""
+    return str(dtype).removeprefix("torch.")
+
+
 class PagedCache:
     """Page-table cache store: a device :class:`PagedKVCache` and a host
     :class:`PageAllocator`.  The engine admits with :meth:`reserve` (the
     prompt's pages), grows with :meth:`ensure_append` (one page at a page
     boundary) and reclaims with :meth:`free`.  Length accounting is
-    host-side; the device ``lens`` is set by splice, the chunk call and the
-    decode step."""
+    host-side; the device ``lens`` is set by reserve (at a prefix match),
+    splice, the chunk call and the decode step.
+
+    With ``prefix_cache`` the store keeps a chain-hash -> page id map over
+    full pages (module docstring): :meth:`reserve` with ``tokens`` adopts
+    the longest resident prefix, :meth:`register_prefix` publishes a fully
+    prefilled sequence's full pages, and :meth:`quarantine` handles a NaN
+    retirement without zeroing pages other readers attend to.
+    ``integrity_checks`` cross-checks the device page table against the
+    allocator on every free (a device readback: tests and debugging)."""
 
     def __init__(self, model, max_batch: int, max_len: int, page_size: int,
-                 num_pages: int = 0, max_pages_per_seq: int = 0):
+                 num_pages: int = 0, max_pages_per_seq: int = 0,
+                 faults: Optional[flt.FaultPlan] = None,
+                 integrity_checks: bool = False,
+                 prefix_cache: bool = False):
         mpps = max_pages_per_seq or pages_for(max_len, page_size)
         pool = num_pages or max_batch * mpps   # default: linear-equivalent
         self.cache: PagedKVCache = model.init_paged_cache(
@@ -374,7 +467,22 @@ class PagedCache:
         self.page_size = page_size
         self.max_len = min(max_len, mpps * page_size)
         self._cfg_max_len = max_len
-        self.allocator = PageAllocator(pool, mpps, max_batch)
+        self.allocator = PageAllocator(pool, mpps, max_batch, faults=faults)
+        self.faults = faults
+        self.integrity_checks = integrity_checks
+        self.prefix_cache = prefix_cache
+        self._prefix_map: dict[bytes, int] = {}
+        self._page_hash: dict[int, bytes] = {}
+        self._matched = [0] * max_batch
+        # the chain is seeded with the kv-config identity (page geometry
+        # and storage dtypes, named as the reference names them), so pages
+        # written under one cache format never match under another and
+        # equal token histories give the reference's keys byte for byte
+        c = self.cache
+        ident = (page_size, dtype_name(c.k.dtype), int(c.k.shape[-1]),
+                 None if c.k_scale is None else dtype_name(c.k_scale.dtype))
+        self._seed = hashlib.blake2b(repr(ident).encode(),
+                                     digest_size=16).digest()
 
     @property
     def capacity(self) -> int:
@@ -405,20 +513,102 @@ class PagedCache:
                 f"tokens but the idle pool holds {al.num_pages} — size "
                 f"num_pages up")
 
+    # ---- prefix sharing --------------------------------------------------
+    def _page_keys(self, tokens: np.ndarray,
+                   n_pages: Optional[int] = None) -> list[bytes]:
+        """Chain-hash key per full page of ``tokens``: key ``i`` digests
+        (key ``i - 1``, the page's int32 token ids), so a key names the
+        page's whole token history, and equal keys mean equal cache
+        contents (every write path is deterministic in the tokens)."""
+        ps = self.page_size
+        n = len(tokens) // ps if n_pages is None else n_pages
+        toks = np.ascontiguousarray(tokens[:n * ps], np.int32)
+        h, out = self._seed, []
+        for i in range(n):
+            m = hashlib.blake2b(digest_size=16)
+            m.update(h)
+            m.update(toks[i * ps:(i + 1) * ps].tobytes())
+            h = m.digest()
+            out.append(h)
+        return out
+
+    def _match_prefix(self, tokens: np.ndarray) -> list[int]:
+        """Longest resident full-page prefix of ``tokens``, capped so at
+        least one token stays novel: the final chunk must produce the first
+        sampled token's logits."""
+        limit = (len(tokens) - 1) // self.page_size
+        pages = []
+        for key in self._page_keys(tokens, limit):
+            page = self._prefix_map.get(key)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def _unmap(self, page: int) -> None:
+        key = self._page_hash.pop(page, None)
+        if key is not None:
+            self._prefix_map.pop(key, None)
+
+    def _allocate(self, slot: int, n: int) -> Optional[list[int]]:
+        """Fresh pages for ``slot``; a recycled page that was still
+        prefix-mapped loses its map entry (it is about to be rewritten)."""
+        pages = self.allocator.allocate(slot, n)
+        if pages:
+            for p in pages:
+                self._unmap(p)
+        return pages
+
+    def matched_tokens(self, slot: int) -> int:
+        """Tokens of ``slot``'s sequence already resident in shared pages
+        (set by the last :meth:`reserve`): where chunked prefill resumes."""
+        return self._matched[slot]
+
+    def register_prefix(self, slot: int, tokens: np.ndarray) -> None:
+        """Publish ``slot``'s full pages into the prefix map (the first
+        writer wins).  Called once the sequence is fully prefilled with
+        finite logits: its full pages are immutable from then on."""
+        if not self.prefix_cache:
+            return
+        pages = self.allocator.owned[slot]
+        for key, page in zip(self._page_keys(np.asarray(tokens)), pages):
+            if key in self._prefix_map or page in self._page_hash:
+                continue   # already resident (often this slot's own adopt)
+            self._prefix_map[key] = page
+            self._page_hash[page] = key
+
     def _publish(self, slot: int, start: int, pages: list[int]) -> None:
         self.cache.page_table[slot, start:start + len(pages)] = torch.tensor(
             pages, dtype=torch.int32)
 
-    def reserve(self, slot: int, length: int) -> bool:
-        """Allocate the prompt's ``ceil(length / page_size)`` pages and
-        publish them to the slot's device page-table row."""
+    def reserve(self, slot: int, length: int,
+                tokens: Optional[np.ndarray] = None) -> bool:
+        """Back the prompt's ``ceil(length / page_size)`` pages and publish
+        them to the slot's device page-table row.  With ``prefix_cache``
+        and ``tokens``, the longest resident full-page prefix is adopted
+        instead of allocated, and the device ``lens`` is set to the matched
+        length, so the droppable token a decode step writes ahead of a
+        mid-prefill slot lands in its first exclusive page.  All or
+        nothing: an adopt whose fresh pages cannot be had is rolled back."""
         if self.allocator.owned[slot]:
             raise PageIntegrityError(f"reserve on occupied slot {slot}")
-        pages = self.allocator.allocate(slot,
-                                        pages_for(length, self.page_size))
-        if pages is None:
+        self._matched[slot] = 0
+        shared: list[int] = []
+        if self.prefix_cache and tokens is not None:
+            shared = self._match_prefix(np.asarray(tokens))
+        n = pages_for(length, self.page_size)
+        if shared and not self.allocator.adopt(slot, shared):
+            shared = []
+        fresh = self._allocate(slot, n - len(shared))
+        if fresh is None:
+            if shared:
+                self.allocator.free(slot, cached=frozenset(
+                    p for p in shared if p in self._page_hash))
             return False
-        self._publish(slot, 0, pages)
+        self._publish(slot, 0, shared + fresh)
+        if shared:
+            self._matched[slot] = len(shared) * self.page_size
+            self.cache.lens[slot] = self._matched[slot]
         return True
 
     def ensure_append(self, slot: int, length: int) -> bool:
@@ -427,7 +617,7 @@ class PagedCache:
         idx = len(self.allocator.owned[slot])
         if length < idx * self.page_size:
             return True
-        pages = self.allocator.allocate(slot, 1)
+        pages = self._allocate(slot, 1)
         if pages is None:
             return False
         self._publish(slot, idx, pages)
@@ -437,7 +627,8 @@ class PagedCache:
         return len(self.allocator.owned[slot])
 
     def reclaimable_pages(self, slot: int) -> int:
-        """Pages an eviction of ``slot`` would return to the pool."""
+        """Pages an eviction of ``slot`` would return to the pool (shared
+        pages stay live for their other readers)."""
         return self.allocator.exclusive_pages(slot)
 
     def splice(self, slot: int, seq_cache: dict, row: int,
@@ -468,20 +659,87 @@ class PagedCache:
                 pool[:, pidx] = src.reshape(src.shape[0], n, ps,
                                             *src.shape[2:]).to(pool.dtype)
         self.cache.lens[slot] = length
+        if n and self.faults is not None and self.faults.fires(
+                flt.SPLICE_CORRUPT, slot=slot):
+            # misdirect logical page 0 at the next pool page: the bug class
+            # the integrity check of free exists to catch
+            self.cache.page_table[slot, 0] = (pages[0] + 1) \
+                % self.allocator.num_pages
 
     def free(self, slot: int) -> int:
-        """Drop the slot's pages (stale pool contents stay: every read is
-        gated by the page table and lens) and clear its device row."""
-        n = self.allocator.free(slot)
+        """Drop the slot's page references (stale pool contents stay: every
+        read is gated by the page table and lens) and clear its device row.
+        Pages still prefix-mapped go to the free list's front."""
+        if self.integrity_checks:
+            self._check_free(slot)
+        n = self.allocator.free(slot, cached=frozenset(
+            p for p in self.allocator.owned[slot] if p in self._page_hash))
+        self._matched[slot] = 0
         self.cache.page_table[slot] = -1
         self.cache.lens[slot] = 0
         return n
 
+    def _check_free(self, slot: int) -> None:
+        """Debug-mode free: the device page-table row must mirror the
+        allocator, and no other row may reference a page about to reach
+        refcount 0 (shared pages are legitimately in their readers' rows)."""
+        al = self.allocator
+        owned = al.owned[slot]
+        pt = self.cache.page_table.cpu().numpy()
+        row, n = pt[slot], len(owned)
+        if list(row[:n]) != owned or not (row[n:] == -1).all():
+            raise PageIntegrityError(
+                f"free(slot={slot}): device page-table row "
+                f"{row.tolist()} diverged from allocator bookkeeping "
+                f"{owned} — corrupted splice/append")
+        dying = [p for p in owned if al.owners[p] == {slot}]
+        if dying:
+            others = np.delete(pt, slot, axis=0)
+            shared = np.intersect1d(others[others >= 0], dying)
+            if shared.size:
+                raise PageIntegrityError(
+                    f"free(slot={slot}): page(s) {shared.tolist()} still "
+                    f"referenced by another live page-table row")
+
+    def _zero_pages(self, pages: list[int]) -> None:
+        if not pages:
+            return
+        pidx = torch.tensor(pages, dtype=torch.long,
+                            device=self.cache.k.device)
+        for key in SEQ_KEYS:
+            pool = getattr(self.cache, key)
+            if pool is not None:
+                pool[:, pidx] = 0
+
+    def quarantine(self, slot: int) -> list[int]:
+        """NaN quarantine of ``slot`` before its free.  Masked attention
+        rows still enter ``p @ v`` with weight 0.0 and ``0.0 * NaN = NaN``,
+        so a non-finite value left in a recycled page would poison its next
+        owner; but zeroing a shared page would rewrite K/V its other
+        readers attend to.  So every page of the slot leaves the prefix
+        map, only refcount-1 pages are zeroed, and the co-readers of the
+        shared ones are returned for the engine to fail."""
+        al = self.allocator
+        co: set[int] = set()
+        excl: list[int] = []
+        for p in al.owned[slot]:
+            self._unmap(p)
+            if al.owners[p] == {slot}:
+                excl.append(p)
+            else:
+                co |= al.owners[p] - {slot}
+        self._zero_pages(excl)
+        return sorted(co)
+
+    def scrub(self, slot: int) -> None:
+        """Zero the slot's exclusive pages (see :meth:`quarantine`)."""
+        self.quarantine(slot)
+
     def verify(self) -> None:
         """Full pool audit: every page is either free (refcount 0, once on
         the free list) or referenced by exactly its refcount's worth of
-        owned lists, and the device page tables mirror the allocator.
-        Raises :class:`PageIntegrityError`."""
+        owned lists, the prefix map is a bijection, and the device page
+        tables mirror the allocator.  Raises :class:`PageIntegrityError`."""
         al = self.allocator
         if len(al.free_list) != len(set(al.free_list)):
             raise PageIntegrityError(
@@ -509,6 +767,15 @@ class PagedCache:
                 raise PageIntegrityError(
                     f"page {p}: refcount {rc} but "
                     f"{'on' if p in free else 'not on'} the free list")
+        for key, page in self._prefix_map.items():
+            if self._page_hash.get(page) != key:
+                raise PageIntegrityError(
+                    f"prefix map corrupt: key {key.hex()} -> page {page} "
+                    f"but page_hash[{page}] disagrees")
+        if len(self._page_hash) != len(self._prefix_map):
+            raise PageIntegrityError(
+                f"prefix map corrupt: {len(self._prefix_map)} keys vs "
+                f"{len(self._page_hash)} hashed pages")
         pt = self.cache.page_table.cpu().numpy()
         for slot, owned in enumerate(al.owned):
             row, n = pt[slot], len(owned)
@@ -519,4 +786,3 @@ class PagedCache:
 
     def cache_bytes(self) -> int:
         return self.cache.nbytes
-

@@ -687,3 +687,107 @@ def test_calibrate_block_step_on_the_card_equals_the_cpu(dev, abits, group):
                                lr_lwc=ccfg.lr_lwc / 2)
     loss, leaf = gaps(half)
     assert loss > 1e-5 and leaf > 1e-4, (loss, leaf)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+@pytest.mark.parametrize("ps", [8, 64])
+def test_flash_prefill_paged_resumed_over_shared_pages(dev, kv_bits, ps):
+    """A prefix hit: row 1 resumes a chunk at offset 2 * ps over row 0's
+    first two pages.  Its output equals, bit for bit, the same chunk over
+    private copies of those pages, and the shared pages' bytes stay as they
+    were (attention only reads the pools)."""
+    rng = np.random.default_rng(60 + kv_bits + ps)
+    hkv, d, g, c = 2, 64, 4, ps + 3
+    pools = _entries(rng, (8, ps), hkv, d, kv_bits, dev)
+    for e in pools:
+        if e is not None:
+            e[5:7] = e[0:2]                     # private copies of 0 and 1
+    before = [e[0:2].clone() for e in pools if e is not None]
+    q = torch.from_numpy(rng.standard_normal((2, hkv, c, g, d)).astype(
+        np.float32)).to(dev)
+    off = torch.tensor([ps - 3, 2 * ps], dtype=torch.int32, device=dev)
+    cl = torch.tensor([3, c], dtype=torch.int32, device=dev)
+    outs = []
+    for row1 in ([0, 1, 3, 4], [5, 6, 3, 4]):
+        pt = torch.tensor([[0, 1, 2, -1], row1], dtype=torch.int32,
+                          device=dev)
+        outs.append(flash_prefill_paged(q, pools[0], pools[1], pt, off, cl,
+                                        *pools[2:]))
+        want = flash_prefill_paged_plain(q, pools[0], pools[1], pt, off, cl,
+                                         *pools[2:])
+        assert _err(outs[-1], want) < 1e-5
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, e[0:2]) for a, e in
+               zip(before, [e for e in pools if e is not None]))
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_quarantine_zeroes_only_exclusive_pages_on_the_card(dev, kv_bits):
+    """NaN quarantine over CUDA pools: the quarantined slot's refcount-1
+    pages are zeroed, the pages it shares with a live reader keep their
+    (poisoned) bytes, the co-reader is named and the prefix map emptied."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.serve.kv_cache import PagedCache
+    from repro_torch.serve.quantized import QuantizedModel
+    model = QuantizedModel(get_config("llama-micro"), QuantConfig(
+        w_bits=8, a_bits=16, group_size=32, kv_bits=kv_bits), device="cuda")
+    store = PagedCache(model, max_batch=3, max_len=32, page_size=8,
+                       prefix_cache=True)
+    toks = np.arange(19, dtype=np.int32)
+    assert store.reserve(0, 20, tokens=toks)
+    store.register_prefix(0, toks)
+    assert store.reserve(1, 20, tokens=toks)
+    assert store.cache.lens.tolist()[1] == 16
+    shared = store.allocator.owned[0][:2]
+    excl = [p for p in store.allocator.owned[1] if p not in shared]
+    for t in (store.cache.k, store.cache.v):
+        t.fill_(7)
+    for t in (store.cache.k_scale, store.cache.v_scale):
+        t.fill_(float("nan"))
+    assert store.quarantine(1) == [0]
+    c = store.cache
+    for p in excl:
+        assert not c.k[:, p].any() and not c.v[:, p].any()
+        assert not c.k_scale[:, p].any() and not c.v_scale[:, p].any()
+    for p in shared + [store.allocator.owned[0][2]]:
+        assert (c.k[:, p] == 7).all() and torch.isnan(c.k_scale[:, p]).all()
+    assert not store._prefix_map
+    store.free(1)
+    store.verify()
+
+
+def test_sampler_rows_independent_of_the_batch_on_the_card(dev):
+    """The per-(seed, rid, position) sampler on CUDA logits: a row draws
+    the same token whatever rows share the call, a repeated call draws
+    the same tokens, and every draw lies in its row's top-k support."""
+    from repro_torch.serve.engine import row_seed, sample, sampling_logits
+    rng = np.random.default_rng(7)
+    lg = torch.from_numpy(rng.standard_normal((6, 32000)).astype(
+        np.float32) * 4).to(dev)
+    seeds = [row_seed(0, rid, 3) for rid in range(6)]
+    full = sample(lg, 0.8, 40, seeds)
+    assert torch.equal(full, sample(lg, 0.8, 40, seeds))
+    assert torch.equal(sample(lg[[4, 1]], 0.8, 40, [seeds[4], seeds[1]]),
+                       full[[4, 1]])
+    support = torch.isfinite(sampling_logits(lg, 0.8, 40))
+    assert support[torch.arange(6, device=dev), full].all()
+    many = torch.stack([sample(lg[:1], 0.8, 40, [row_seed(0, 0, n)])
+                        for n in range(64)])
+    assert len(set(many.flatten().tolist())) > 1
+
+
+def test_rmsnorm_rows_equal_at_every_row_count(dev):
+    """A row normalised inside a 20-row prefill chunk equals, bit for bit,
+    the same row normalised alone (a decode step): at a4 one bit of the
+    norm can move an activation code, and a preempted request resumes
+    through a chunk where it had decoded.  A float32 mean on the card
+    differed in 15 of these 80 rows."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 20, 4096, device=dev, generator=gen) * 3
+    p = {"scale": torch.rand(4096, device=dev, generator=gen) + 0.5}
+    whole = layers.apply_norm(p, x, "rmsnorm")
+    rows = torch.cat([layers.apply_norm(p, x[:, i:i + 1], "rmsnorm")
+                      for i in range(20)], dim=1)
+    assert torch.equal(whole, rows)

@@ -107,8 +107,19 @@ def test_submit_rejects_unservable_prompts(packed):
 @pytest.mark.parametrize("over", [dict(temperature=0.7),
                                   dict(prefix_cache=True)])
 def test_unported_engine_options_raise(packed, over):
-    with pytest.raises(NotImplementedError):
-        _port_engine(packed, **over)
+    """Sampling at a temperature and prefix caching were refused until
+    they were ported; now they raise only where the reference does (prefix
+    caching without the paged, chunked cache whose pages it shares) and
+    otherwise serve every request to completion."""
+    if over.get("prefix_cache"):
+        with pytest.raises(ValueError, match="paged=True"):
+            _port_engine(packed, **over)
+        over = dict(over, paged=True, page_size=8, prefill_chunk=8)
+    eng = _port_engine(packed, **over)
+    reqs = [eng.submit(p) for p in _trace(512)[:3]]
+    eng.run(max_steps=200)
+    assert [r.status for r in reqs] == [RequestStatus.COMPLETED] * 3
+    assert all(len(r.out_tokens) == SERVE["max_new"] for r in reqs)
 
 
 def test_memory_report_counts_packed_weights_and_kv8_cache(packed):
