@@ -32,15 +32,22 @@ failure raises (exit code != 0).
    beside the new one.
    int8_matmul and w8a8_matmul at the four llama-7b linear shapes and the
    512-token 4096 -> 4096 product, and quantize_pack at the llama-7b weight
-   shapes (w4 g128 both ways, w2, w8 and per-channel w4), must equal their
-   plain versions bit for bit; the int8 pair's rows at M = 4 must equal
+   shapes (w4 g128 both ways, w2, w8 and per-channel w4) and opt-125m's
+   768 x 3072 w4 g128, must equal their plain versions bit for bit; the int8 pair's rows at M = 4 must equal
    the same rows at M = 512, and each log line names the body of
    csrc/int8_matmul.cu that ran (decode, wgmma or mma_sync).
+   opt-125m's shapes too: w4a8_matmul at M = 4 and 512 for 768 -> 768,
+   768 -> 3072 and 3072 -> 768 (bit for bit, rows equal across M),
+   dequant_matmul at M = 4 and 512 for 768 -> 3072, the four attention
+   kernels at B 4, Hkv 12, D 64, kv8 and kv4, length 144, and one kv4
+   decode case at D 32 in each layout (the value-by-value copy path).
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
    before and read just after; then a teacher-forced check of the same
-   tokens against the plain versions on the card.
+   tokens against the plain versions on the card.  The served tree's RTN
+   packing at startup runs the quantize_pack kernel (224 launches, one a
+   linear, counted on the main path).
 4. serve at a16: W4A16 g128 with the fp cache (depth cut), which runs
    dequant_matmul.
 5. serve phase 3's model and requests over page pools of 64: (a) with
@@ -50,14 +57,16 @@ failure raises (exit code != 0).
    and pass the per-block teacher-forced check over pages.
 6. serve the same model at kv4 (4 requests x (128 + 8), paged, chunks of
    64), gated by the same per-block check.
-7. repack: the reference's entry points of the three kernels no serving
-   path runs (``ops.quantize_pack``, ``ops.w8a8_matmul``,
-   ``int8_matmul.int8_matmul``; no serving path of the reference runs
-   them either), at full width over every layer of the served tree.  Each
+7. repack: the reference's entry points of the int8 pair, which no
+   serving path runs (``ops.w8a8_matmul``, ``int8_matmul.int8_matmul``;
+   no serving path of the reference runs them either), and of
+   ``ops.quantize_pack``, at full width over every layer of the served
+   tree.  Each
    layer's float block is drawn again on the card from the generator
    sequence that built phase 3's tree, and ``ops.quantize_pack`` (w4 g128)
-   of each of its seven linears must equal the QTensor phase 3 served,
-   packed bytes, scales and zero points (224 launches); ``wq`` and ``w_up``
+   of each of its seven linears must equal the QTensor phase 3 served and
+   the plain ``quantize_codes``, packed bytes, scales and zero points (224
+   launches, a check that the summary does not count); ``wq`` and ``w_up``
    as symmetric per-channel int8 codes go through ``ops.w8a8_matmul`` and
    ``int8_matmul`` at M = 4 and 512 on phase 3's prompt embeddings, bit for
    bit against the plain version; then one call of each at each M under
@@ -111,10 +120,31 @@ failure raises (exit code != 0).
    streams and the sampled streams must differ from them.  Each part logs
    its wall time and each wave its tokens/s beside the card's name and
    power limit.
-10. summary.  Every kernel's ``launches`` is the count of the runs above
-   that drive the main path (phases 3-6, 9 and the serving runs of phase 8
-   for the six serving kernels, phase 7 for the other three), never of the
-   comparisons of phases 2, 8 and 9.
+10. opt-125m at full width and depth (12 layers, d 768, 12 heads of 64,
+   d_ff 3072, vocab 50272, sinusoidal positions), random seeded float
+   weights, phase 8's tokens and budgets: (a) AffineQuant W4A4 g128 kv8
+   (diagonal LayerNorm sites whose shifts merge into the norms' biases and
+   the q/k/v and fc1 biases, 12 headwise vo sites) with phase 8's gates,
+   then the packed tree over the linear kv8 cache, over pages and chunks
+   of 64 into a 10-page pool (the working set needs 12), which must
+   preempt and give the linear streams token for token, and at kv4 paged,
+   each with the per-block check; (b) AffineQuant W4A16 g128 with full
+   768 x 768 sites, through dequant_matmul, packed vs fake-quant logits
+   within FAKE_TOL; (c) the RTN, AWQ and GPTQ baselines at W4A16 g128 on
+   opt-125m and on phase 8's two llama-7b-width blocks: finite
+   perplexities, AWQ's layer-output MSE at most RTN's on every linear,
+   GPTQ's summed over each block below RTN's, RTN's packed tree (through
+   quantize_pack) byte-equal to quantize_codes and dequantizing bit for
+   bit to the fake-quant tree, served through dequant_matmul and held end
+   to end against the plain versions.  Logs the perplexities side by side
+   and each method's seconds per block.
+11. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (the startup packing of phases 3 and 4,
+   phases 3-6, 9, the serving runs of phase 8 and phase 10's serving and
+   RTN packing for the seven serving-path kernels, phase 7 for the int8
+   pair), never of the comparisons of phases 2, 8, 9 and 10 or of phase
+   7's repack check (its quantize_pack calls are gated there, not
+   counted).
 
 Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels (with phase 7's
@@ -152,6 +182,9 @@ KERNELS = {"w4a8_matmul": "w4a8_matmul.cu",        # name -> source file
 # (M, K, N) of llama-7b's linears: decode (M 4) and a 512-token prefill
 LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
                  (512, 4096, 11008))
+# opt-125m's linears (q/k/v/o, fc1, fc2), decode and a 512-token prefill
+OPT_LINEAR_SHAPES = tuple((m, k, n) for m in (4, 512)
+                          for k, n in ((768, 768), (768, 3072), (3072, 768)))
 # Earlier times of the redesigned kernels as PERF.md records them (H100
 # 80GB HBM3, 700 W), logged beside this run's.
 _MAIN_PREFILL = "B=4 C=128 S=128 Hkv=32 G=1 D=128 kv{} offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]"
@@ -281,25 +314,39 @@ def main() -> None:
     # ---- 3-6. serving; one packed llama-7b tree shared by 3, 5 and 6 ------
     from repro_torch.launch import serve
     t0 = time.perf_counter()
+    _lib.reset_launches()
     params = serve.build_model(serve.build_parser().parse_args(
         SERVE_ARGS + ["--layers", str(LAYERS)]))[2]
+    torch.cuda.synchronize()
+    startup = dict(_lib.LAUNCHES)
     log(f"[serve] random init + RTN packing of the llama-7b tree "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; launches {startup}")
+    if startup["quantize_pack"] != 7 * LAYERS:
+        raise RuntimeError(f"startup: {startup['quantize_pack']} quantize_pack "
+                           f"launches packed the served tree, not one per "
+                           f"linear ({7 * LAYERS})")
     counts, streams, prompts = serve_w4a4(torch, params)
-    phases = [serve_a16(torch), serve_paged(torch, params, streams),
+    phases = [startup, serve_a16(torch), serve_paged(torch, params, streams),
               serve_kv4(torch, params)]
     # ---- 9. the Engine contract, on the same tree -------------------------
     phases.append(engine_contract(torch, params, list(prompts.numpy()),
                                   streams))
     repacked, retries = repack(torch, params, prompts)
+    # phase 7's quantize_pack calls are its repack comparison, not a run of
+    # the main path; only its int8 pair counts
+    repacked["quantize_pack"] = 0
     phases.append(repacked)
     del params
     torch.cuda.empty_cache()
 
     # ---- 8. calibrate llama-7b-width blocks and serve what they pack -------
-    phases.append(calibrate_phase(torch))
+    ppl = {}
+    phases.append(calibrate_phase(torch, ppl))
 
-    # ---- 10. summary -------------------------------------------------------
+    # ---- 10. opt-125m: AffineQuant, serving, the RTN / AWQ / GPTQ baselines -
+    phases.append(opt_phase(torch, ppl))
+
+    # ---- 11. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -361,7 +408,7 @@ def _record(results, name, case, err, tol, ms, plain_ms, lib_ms, bms, by,
     earlier = "" if earlier is None else f" (PERF.md, earlier body: {earlier:.4f} ms)"
     log(f"[kernel] {name} {case}: max_abs_err {err:.3e} (tol {tol:.3e}) "
         f"kernel {ms:.4f} ms{earlier}, plain {plain_ms:.4f} ms, library {lib}, "
-        f"bound {bms:.4f} ms ({by})")
+        f"bound {bms:.4g} ms ({by})")
     if not err <= tol:
         raise RuntimeError(f"{name} {case}: error {err} above tolerance {tol}")
     if main_case:
@@ -417,7 +464,7 @@ def check_kernels(torch, timer, results) -> None:
 
     # ---- the two matmuls: every linear shape of llama-7b, decode + prefill
     g, bits = 128, 4
-    for m, k, n in LINEAR_SHAPES:
+    for m, k, n in LINEAR_SHAPES + OPT_LINEAR_SHAPES:
         x = randn(m, k)
         codes = torch.randint(0, 16, (k, n), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -463,6 +510,8 @@ def check_kernels(torch, timer, results) -> None:
             f"device work alone {dev_ms:.4f} ms, host enqueue "
             f"{host_ms:.4f} ms a call")
 
+        if (m, k, n) not in LINEAR_SHAPES and (k, n) != (768, 3072):
+            continue          # dequant_matmul: opt-125m's fc1 shape only
         want = dq.dequant_matmul_plain(x, packed, scale, zp, bits=bits,
                                        group_size=g)
         got = dq.dequant_matmul(x, packed, scale, zp, bits=bits, group_size=g)
@@ -492,17 +541,23 @@ def check_kernels(torch, timer, results) -> None:
     # long context (S 2048, a 67 MB kv8 cache)
     b, s, d = 4, 512, 128
 
-    def cache(hkv, kv_bits, s=s):
-        return kv_cache_tensors(torch, gen, (b, s), hkv, d, kv_bits)
+    def cache(hkv, kv_bits, s=s, hd=d):
+        return kv_cache_tensors(torch, gen, (b, s), hkv, hd, kv_bits)
 
-    for hkv, gq, kv_bits, lens, s in ((32, 1, 8, (144, 144, 144, 144), 512),
-                                      (32, 1, 8, (0, 1, 257, 512), 512),
-                                      (32, 1, 16, (144, 144, 144, 144), 512),
-                                      (32, 1, 4, (144, 144, 144, 144), 512),
-                                      (8, 4, 8, (0, 31, 300, 512), 512),
-                                      (32, 1, 8, (2048,) * 4, 2048)):
-        kv = cache(hkv, kv_bits, s)
-        q = randn(b, hkv, gq, d)
+    # llama-7b (D 128), opt-125m (Hkv 12, D 64) and a D-32 kv4 case (the
+    # value-by-value copy path of csrc/flash_decode.cu)
+    for hkv, gq, kv_bits, lens, s, hd in (
+            (32, 1, 8, (144, 144, 144, 144), 512, d),
+            (32, 1, 8, (0, 1, 257, 512), 512, d),
+            (32, 1, 16, (144, 144, 144, 144), 512, d),
+            (32, 1, 4, (144, 144, 144, 144), 512, d),
+            (8, 4, 8, (0, 31, 300, 512), 512, d),
+            (32, 1, 8, (2048,) * 4, 2048, d),
+            (12, 1, 8, (144, 144, 144, 144), 512, 64),
+            (12, 1, 4, (144, 144, 144, 144), 512, 64),
+            (8, 1, 4, (144, 144, 144, 144), 512, 32)):
+        kv = cache(hkv, kv_bits, s, hd)
+        q = randn(b, hkv, gq, hd)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
         want = fd.flash_decode_plain(q, kv[0], kv[1], cur, kv[2], kv[3],
                                      block_kv=512)
@@ -519,23 +574,23 @@ def check_kernels(torch, timer, results) -> None:
         fd.flash_decode(q, kv[0], kv[1], cur, kv[2], kv[3])
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        fp32_copy = b * s * hkv * d * 4
+        fp32_copy = b * s * hkv * hd * 4
         log(f"[kernel] flash_decode peak extra memory {peak} B < one fp32 "
             f"cache copy {fp32_copy} B")
         if peak >= fp32_copy:
             raise RuntimeError("flash_decode materialised the cache")
         kf, vf = dequant(kv)
         kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
-        qt = q.reshape(b, hkv * gq, 1, d)
+        qt = q.reshape(b, hkv * gq, 1, hd)
         mask = (torch.arange(s, device=dev)[None, :] < cur[:, None])[:, None, None, :]
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=gq > 1))
         total = int(sum(lens))
-        nbytes = total * kv_token_bytes(kv_bits, hkv, d) + 2 * q.numel() * 4 + 4 * b
-        bms, by = bound(nbytes, 4 * d * gq * hkv * total, FP32_OPS_PER_S)
-        case = (f"B={b} S={s} Hkv={hkv} G={gq} D={d} "
+        nbytes = total * kv_token_bytes(kv_bits, hkv, hd) + 2 * q.numel() * 4 + 4 * b
+        bms, by = bound(nbytes, 4 * hd * gq * hkv * total, FP32_OPS_PER_S)
+        case = (f"B={b} S={s} Hkv={hkv} G={gq} D={hd} "
                 f"kv{kv_bits} cur_len={list(lens)}")
-        main = kv_bits == 8 and gq == 1 and lens[0] == 144
+        main = kv_bits == 8 and gq == 1 and lens[0] == 144 and hd == d
         _record(results, "flash_decode", case, err, tol,
                 timer(lambda: fd.flash_decode(q, kv[0], kv[1], cur, kv[2], kv[3])),
                 timer(lambda: fd.flash_decode_plain(
@@ -544,15 +599,17 @@ def check_kernels(torch, timer, results) -> None:
 
     del kv, q, kf, vf, kt, vt
     c = 128
-    for hkv, gq, kv_bits, offs, cls, sc in (
-            (32, 1, 8, (0, 0, 0, 0), (128, 128, 128, 128), 128),
-            (32, 1, 8, (0, 5, 300, 0), (128, 0, 77, 3), 512),
-            (32, 1, 16, (0, 0, 0, 0), (128, 128, 128, 128), 128),
-            (32, 1, 4, (0, 0, 0, 0), (128, 128, 128, 128), 128),
-            (8, 4, 8, (0, 40, 384, 0), (128, 100, 128, 0), 512)):
-        kv = cache(hkv, kv_bits)
+    for hkv, gq, kv_bits, offs, cls, sc, hd in (
+            (32, 1, 8, (0, 0, 0, 0), (128, 128, 128, 128), 128, d),
+            (32, 1, 8, (0, 5, 300, 0), (128, 0, 77, 3), 512, d),
+            (32, 1, 16, (0, 0, 0, 0), (128, 128, 128, 128), 128, d),
+            (32, 1, 4, (0, 0, 0, 0), (128, 128, 128, 128), 128, d),
+            (8, 4, 8, (0, 40, 384, 0), (128, 100, 128, 0), 512, d),
+            (12, 1, 8, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64),
+            (12, 1, 4, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64)):
+        kv = cache(hkv, kv_bits, hd=hd)
         kv = tuple(None if t is None else t[:, :sc].contiguous() for t in kv)
-        q = randn(b, hkv, c, gq, d)
+        q = randn(b, hkv, c, gq, hd)
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
         cl = torch.tensor(cls, dtype=torch.int32, device=dev)
         want = fp.flash_prefill_plain(q, kv[0], kv[1], off, cl, kv[2], kv[3],
@@ -563,7 +620,7 @@ def check_kernels(torch, timer, results) -> None:
         tol = 2e-5 * max(want.abs().max().item(), 1.0)
         kf, vf = dequant(kv)
         kt, vt = kf.transpose(1, 2), vf.transpose(1, 2)
-        qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, d)
+        qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, hd)
         rows = torch.arange(c, device=dev)
         mask = ((torch.arange(sc, device=dev)[None, None, :]
                  <= off[:, None, None] + rows[None, :, None])
@@ -573,11 +630,11 @@ def check_kernels(torch, timer, results) -> None:
         attended = sum(min(o + x + 1, sc) for o, n in zip(offs, cls)
                        for x in range(n))
         prefix = sum(min(o + n, sc) for o, n in zip(offs, cls) if n)
-        nbytes = prefix * kv_token_bytes(kv_bits, hkv, d) + 2 * q.numel() * 4 + 8 * b
-        bms, by = bound(nbytes, 4 * d * gq * hkv * attended, FP32_OPS_PER_S)
-        case = (f"B={b} C={c} S={sc} Hkv={hkv} G={gq} D={d} "
+        nbytes = prefix * kv_token_bytes(kv_bits, hkv, hd) + 2 * q.numel() * 4 + 8 * b
+        bms, by = bound(nbytes, 4 * hd * gq * hkv * attended, FP32_OPS_PER_S)
+        case = (f"B={b} C={c} S={sc} Hkv={hkv} G={gq} D={hd} "
                 f"kv{kv_bits} offset={list(offs)} chunk_len={list(cls)}")
-        main = kv_bits == 8 and gq == 1 and cls[1] == 128
+        main = kv_bits == 8 and gq == 1 and cls[1] == 128 and hd == d
         _record(results, "flash_prefill", case, err, tol,
                 timer(lambda: fp.flash_prefill(q, kv[0], kv[1], off, cl,
                                                kv[2], kv[3])),
@@ -664,19 +721,22 @@ def check_paged_kernels(torch, timer, results) -> None:
     def sdpa_kv(lin):
         return tuple(t.transpose(1, 2) for t in dequant(lin))
 
-    for hkv, gq, kv_bits, ps, lens, max_len in (
-            (32, 1, 8, 64, (144, 144, 144, 144), 512),
-            (32, 1, 16, 64, (144, 144, 144, 144), 512),
-            (32, 1, 4, 64, (144, 144, 144, 144), 512),
-            (32, 1, 8, 64, (0, 1, 257, 512), 512),
-            (8, 4, 8, 64, (0, 31, 300, 512), 512),
-            (32, 1, 8, 16, (0, 17, 144, 512), 512),
-            (32, 1, 4, 16, (0, 17, 144, 512), 512),
-            (32, 1, 8, 64, (2048,) * 4, 2048)):
+    for hkv, gq, kv_bits, ps, lens, max_len, hd in (
+            (32, 1, 8, 64, (144, 144, 144, 144), 512, d),
+            (32, 1, 16, 64, (144, 144, 144, 144), 512, d),
+            (32, 1, 4, 64, (144, 144, 144, 144), 512, d),
+            (32, 1, 8, 64, (0, 1, 257, 512), 512, d),
+            (8, 4, 8, 64, (0, 31, 300, 512), 512, d),
+            (32, 1, 8, 16, (0, 17, 144, 512), 512, d),
+            (32, 1, 4, 16, (0, 17, 144, 512), 512, d),
+            (32, 1, 8, 64, (2048,) * 4, 2048, d),
+            (12, 1, 8, 64, (144, 144, 144, 144), 512, 64),
+            (12, 1, 4, 64, (144, 144, 144, 144), 512, 64),
+            (8, 1, 4, 64, (144, 144, 144, 144), 512, 32)):
         max_pages = max_len // ps
-        pools, pt, lin = paged_case(torch, gen, lens, hkv, d, ps, kv_bits,
+        pools, pt, lin = paged_case(torch, gen, lens, hkv, hd, ps, kv_bits,
                                     max_pages)
-        q = torch.randn((b, hkv, gq, d), generator=gen, device=dev)
+        q = torch.randn((b, hkv, gq, hd), generator=gen, device=dev)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
         want = fd.flash_decode_paged_plain(q, pools[0], pools[1], pt, cur,
                                            *pools[2:])
@@ -698,25 +758,26 @@ def check_paged_kernels(torch, timer, results) -> None:
         fd.flash_decode_paged(q, pools[0], pools[1], pt, cur, *pools[2:])
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        fp32_copy = b * max_len * hkv * d * 4
+        fp32_copy = b * max_len * hkv * hd * 4
         if peak >= fp32_copy:
             raise RuntimeError("flash_decode_paged materialised the cache")
         kt, vt = sdpa_kv(lin)
-        qt = q.reshape(b, hkv * gq, 1, d)
+        qt = q.reshape(b, hkv * gq, 1, hd)
         mask = (torch.arange(kt.shape[2], device=dev)[None, :]
                 < cur[:, None])[:, None, None, :]
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=gq > 1))
         total = int(sum(lens))
         pages_read = sum(-(-n // ps) for n in lens)
-        nbytes = (total * kv_token_bytes(kv_bits, hkv, d) + 4 * pages_read
+        nbytes = (total * kv_token_bytes(kv_bits, hkv, hd) + 4 * pages_read
                   + 2 * q.numel() * 4 + 4 * b)
-        bms, by = bound(nbytes, 4 * d * gq * hkv * total, FP32_OPS_PER_S)
+        bms, by = bound(nbytes, 4 * hd * gq * hkv * total, FP32_OPS_PER_S)
         case = (f"B={b} pages of {ps}, {max_pages}/seq, Hkv={hkv} G={gq} "
-                f"D={d} kv{kv_bits} cur_len={list(lens)}")
+                f"D={hd} kv{kv_bits} cur_len={list(lens)}")
         log(f"[kernel] flash_decode_paged {case}: equals flash_decode bit "
             f"for bit; peak extra memory {peak} B < {fp32_copy} B")
-        main = kv_bits == 8 and gq == 1 and ps == 64 and lens[0] == 144
+        main = (kv_bits == 8 and gq == 1 and ps == 64 and lens[0] == 144
+                and hd == d)
         _record(results, "flash_decode_paged", case, err, tol,
                 timer(lambda: fd.flash_decode_paged(q, pools[0], pools[1], pt,
                                                     cur, *pools[2:])),
@@ -728,19 +789,21 @@ def check_paged_kernels(torch, timer, results) -> None:
     del pools, lin, q, kt, vt
     max_len = 512
     c = 128
-    for hkv, gq, kv_bits, ps, offs, cls in (
-            (32, 1, 8, 64, (0, 0, 0, 0), (128, 128, 128, 128)),
-            (32, 1, 16, 64, (0, 0, 0, 0), (128, 128, 128, 128)),
-            (32, 1, 4, 64, (0, 0, 0, 0), (128, 128, 128, 128)),
-            (32, 1, 8, 64, (0, 5, 300, 0), (128, 0, 77, 3)),
-            (8, 4, 8, 64, (0, 40, 384, 0), (128, 100, 128, 0)),
-            (32, 1, 8, 16, (0, 21, 384, 64), (128, 1, 128, 0)),
-            (32, 1, 4, 16, (0, 21, 384, 64), (128, 1, 128, 0))):
+    for hkv, gq, kv_bits, ps, offs, cls, hd in (
+            (32, 1, 8, 64, (0, 0, 0, 0), (128, 128, 128, 128), d),
+            (32, 1, 16, 64, (0, 0, 0, 0), (128, 128, 128, 128), d),
+            (32, 1, 4, 64, (0, 0, 0, 0), (128, 128, 128, 128), d),
+            (32, 1, 8, 64, (0, 5, 300, 0), (128, 0, 77, 3), d),
+            (8, 4, 8, 64, (0, 40, 384, 0), (128, 100, 128, 0), d),
+            (32, 1, 8, 16, (0, 21, 384, 64), (128, 1, 128, 0), d),
+            (32, 1, 4, 16, (0, 21, 384, 64), (128, 1, 128, 0), d),
+            (12, 1, 8, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64),
+            (12, 1, 4, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64)):
         max_pages = max_len // ps
         ends = [o + n for o, n in zip(offs, cls)]
-        pools, pt, lin = paged_case(torch, gen, ends, hkv, d, ps, kv_bits,
+        pools, pt, lin = paged_case(torch, gen, ends, hkv, hd, ps, kv_bits,
                                     max_pages)
-        q = torch.randn((b, hkv, c, gq, d), generator=gen, device=dev)
+        q = torch.randn((b, hkv, c, gq, hd), generator=gen, device=dev)
         off = torch.tensor(offs, dtype=torch.int32, device=dev)
         cl = torch.tensor(cls, dtype=torch.int32, device=dev)
         want = fp.flash_prefill_paged_plain(q, pools[0], pools[1], pt, off,
@@ -756,7 +819,7 @@ def check_paged_kernels(torch, timer, results) -> None:
                                f"differs from flash_prefill on the same "
                                f"contents")
         kt, vt = sdpa_kv(lin)
-        qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, d)
+        qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, hd)
         rows = torch.arange(c, device=dev)
         mask = ((torch.arange(kt.shape[2], device=dev)[None, None, :]
                  <= off[:, None, None] + rows[None, :, None])
@@ -766,15 +829,16 @@ def check_paged_kernels(torch, timer, results) -> None:
         attended = sum(o + x + 1 for o, n in zip(offs, cls) for x in range(n))
         prefix = sum(e for e, n in zip(ends, cls) if n)
         pages_read = sum(-(-e // ps) for e, n in zip(ends, cls) if n)
-        nbytes = (prefix * kv_token_bytes(kv_bits, hkv, d) + 4 * pages_read
+        nbytes = (prefix * kv_token_bytes(kv_bits, hkv, hd) + 4 * pages_read
                   + 2 * q.numel() * 4 + 8 * b)
-        bms, by = bound(nbytes, 4 * d * gq * hkv * attended, FP32_OPS_PER_S)
+        bms, by = bound(nbytes, 4 * hd * gq * hkv * attended, FP32_OPS_PER_S)
         case = (f"B={b} C={c} pages of {ps}, {max_pages}/seq, Hkv={hkv} "
-                f"G={gq} D={d} kv{kv_bits} offset={list(offs)} "
+                f"G={gq} D={hd} kv{kv_bits} offset={list(offs)} "
                 f"chunk_len={list(cls)}")
         log(f"[kernel] flash_prefill_paged {case}: equals flash_prefill bit "
             f"for bit")
-        main = kv_bits == 8 and gq == 1 and ps == 64 and cls[1] == 128
+        main = (kv_bits == 8 and gq == 1 and ps == 64 and cls[1] == 128
+                and hd == d)
         _record(results, "flash_prefill_paged", case, err, tol,
                 timer(lambda: fp.flash_prefill_paged(q, pools[0], pools[1],
                                                      pt, off, cl, *pools[2:])),
@@ -898,7 +962,7 @@ def check_quantize_pack(torch, timer, results) -> None:
     gen = torch.Generator(device="cuda").manual_seed(3)
     for k, n, bits, g in ((4096, 11008, 4, 128), (11008, 4096, 4, 128),
                           (4096, 11008, 2, 128), (4096, 11008, 8, 128),
-                          (4096, 11008, 4, 0)):
+                          (4096, 11008, 4, 0), (768, 3072, 4, 128)):
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         case = f"K={k} N={n} w{bits} g{g}"
         got = qp.quantize_pack(w, bits=bits, group_size=g)
@@ -1100,7 +1164,7 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
                 pt, offset, cl, c, page_size, rows // page_size), rows)
         else:
             write = kvc.chunk_write_index(offset, cl, c, 512)
-        x = params["embed"][tokens[:, c0:c0 + c].long()]
+        x = models[1]._embed(params, tokens[:, c0:c0 + c], pos)
         for i in range(cfg.num_layers):
             lp = layer(params["layers"], i)
             ya, yp = (m._block_prefill_chunk(lp, x, m._kv_entries(cc, i), pos,
@@ -1134,7 +1198,8 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
     logits(*last, "prefill")
     cur = torch.full((b,), t, dtype=torch.int32, device=dev)
     for step in range(steps):
-        x = params["embed"][gen[:, step:step + 1].to(dev).long()]
+        x = models[1]._embed(params, gen[:, step:step + 1].to(dev),
+                             cur[:, None])
         if page_size:
             write = kvc.token_write_index(kvc.token_write_dest(
                 pt, cur, page_size, rows // page_size), rows)
@@ -1211,19 +1276,21 @@ def _with(argv: list, **flags) -> list:
     return argv
 
 
-def _serve_paged_run(torch, tag, params, **flags):
-    """One paged serving run through the CLI's entry point; returns the
-    output and its launch counts."""
+def _serve_paged_run(torch, tag, params, base=None, **flags):
+    """One paged serving run through the CLI's entry point (``base``: the
+    argv it changes, phase 3's by default); returns the output and its
+    launch counts."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
-    args = serve.build_parser().parse_args(
-        _with(SERVE_ARGS, layers=LAYERS, paged=True, **flags))
+    base = base or _with(SERVE_ARGS, layers=LAYERS)
+    args = serve.build_parser().parse_args(_with(base, paged=True, **flags))
     _lib.reset_launches()
     out = serve.serve(args, params)
     counts = dict(_lib.LAUNCHES)
     kv = out["engine"]._kv
     steps = out["step_seconds"]
-    log(f"[{tag}] {out['cfg'].name} x{LAYERS} {out['qcfg'].tag()} paged "
+    log(f"[{tag}] {out['cfg'].name} x{out['cfg'].num_layers} "
+        f"{out['qcfg'].tag()} paged "
         f"(page {args.page_size}, {kv.allocator.num_pages} pages, prefill "
         f"chunk {args.prefill_chunk or 'whole prompt'}): {out['generated']} "
         f"tokens in {out['seconds']:.3f} s = {out['tokens_per_s']:.2f} tok/s; "
@@ -1714,6 +1781,7 @@ def repack(torch, params, prompts) -> tuple[dict, int]:
     """Phase 7 (see the module docstring); returns its launch counts and
     how many profiler traces were taken again."""
     from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig, quantize_codes
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.launch import serve
@@ -1721,6 +1789,7 @@ def repack(torch, params, prompts) -> tuple[dict, int]:
     from repro_torch.serve.quantized import PACKED_MLP, PACKED_WEIGHTS
     args = serve.build_parser().parse_args(SERVE_ARGS)
     bits, group = args.wbits, args.group
+    qcfg = QuantConfig(w_bits=bits, group_size=group)
     cfg = get_config(args.arch)
     dev = "cuda"
     # launch/serve.py::random_packed_lm's draws, in its order
@@ -1740,10 +1809,12 @@ def repack(torch, params, prompts) -> tuple[dict, int]:
         for name, w, served in linears:
             got = ops.quantize_pack(w, bits=bits, group_size=group)
             qt = served[i]
-            if not all(torch.equal(a, b) for a, b in
-                       zip(got, (qt.packed, qt.scale, qt.zp))):
+            plain = quantize_codes(w, qcfg)
+            if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                       zip(got, (qt.packed, qt.scale, qt.zp),
+                           (plain.packed, plain.scale, plain.zp))):
                 raise RuntimeError(f"repack: layer {i} {name} differs from "
-                                   f"the served QTensor")
+                                   f"the served QTensor or quantize_codes")
             n_linear += 1
         for name, w, _ in linears:
             if name not in ("wq", "w_up"):
@@ -1770,11 +1841,15 @@ def repack(torch, params, prompts) -> tuple[dict, int]:
     torch.cuda.synchronize()
     counts = dict(_lib.LAUNCHES)
     log(f"[repack] {n_linear} linears of {LAYERS} layers repacked w{bits} "
-        f"g{group} by quantize_pack, equal to the served tree (packed, "
-        f"scale, zp); {n_matmul} w8a8_matmul + int8_matmul products on the "
+        f"g{group} by quantize_pack, equal to the served tree (packed at "
+        f"startup by the same kernel) and to the plain quantize_codes "
+        f"(packed, scale, zp); {n_matmul} w8a8_matmul + int8_matmul products on the "
         f"prompts' embeddings bit-equal to the plain version; "
         f"{time.perf_counter() - t0:.1f} s; launches {counts}")
-    for name in ("quantize_pack", "w8a8_matmul", "int8_matmul"):
+    if counts["quantize_pack"] != n_linear:
+        raise RuntimeError(f"repack: {counts['quantize_pack']} quantize_pack "
+                           f"launches for {n_linear} linears")
+    for name in ("w8a8_matmul", "int8_matmul"):
         if counts[name] <= 0:
             raise RuntimeError(f"repack: {name} was never launched")
     # device kernels of one call of each entry, after the counts are read
@@ -1858,121 +1933,345 @@ def _margins(torch, out) -> dict:
     return margins
 
 
-def calibrate_phase(torch) -> dict:
-    """Phase 8 (see the module docstring); returns its launch counts."""
+def calibrate_run(torch, tag, calib_argv, serve_argv, flags, counts,
+                  params=None) -> dict:
+    """Calibrate once through ``launch/calibrate.py`` with ``flags``
+    (wbits, abits, group, kvbits), gate the epoch losses and dominance
+    margins, round-trip the packed tree through ``checkpoints.save`` /
+    ``load_tree``, serve it from memory and with ``--load-packed`` (streams
+    equal, launches added to ``counts``) and hold the kernel path against
+    the plain versions (a4: the per-block check; a16: end to end, and the
+    packed tree against the fake-quant tree within FAKE_TOL).  Returns the
+    float and packed trees, the report and the in-memory serving run."""
     import tempfile
     import numpy as np
     from repro_torch.launch import calibrate, serve
     from repro_torch.train import checkpoints
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = calibrate.calibrate(calibrate.build_parser().parse_args(
+        _with(calib_argv, wbits=flags["wbits"], abits=flags["abits"],
+              group=flags["group"])), params)
+    info, rep = out["info"], out["report"]
+    steps = info["step_seconds"]
+    kinds = {n: d["kind"] for n, d in info["block_qps"][0]["_sites"].items()}
+    log(f"[{tag}] {out['cfg'].name} x{out['cfg'].num_layers} "
+        f"w{flags['wbits']}a{flags['abits']}g{flags['group']} sites {kinds}: "
+        f"{len(steps)} steps, median {statistics.median(steps):.4f} s a "
+        f"step (min {min(steps):.4f}, max {max(steps):.4f}); calibration "
+        f"and finalize {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{tag}] epoch losses per block {info['block_losses']}; held-out "
+        f"16 x 512 perplexity fp {rep['fp_ppl']:.4f} -> quant "
+        f"{rep['quant_ppl']:.4f} (random weights: informative only)")
+    margins = _margins(torch, out)
+    log(f"[{tag}] dominance margins (Levy-Desplanques, > 0 = "
+        f"invertible): {margins}")
+    for i, losses in enumerate(info["block_losses"]):
+        if not (len(losses) == out["ccfg"].epochs
+                and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0]):
+            raise RuntimeError(f"{tag}: block {i} losses {losses} are not "
+                               f"finite and falling")
+    if not (margins and min(margins.values()) > 0):
+        raise RuntimeError(f"{tag}: an effective matrix is not strictly "
+                           f"diagonally dominant")
+    packed, fake, cfg, qcfg = (out[k] for k in ("packed", "fake", "cfg",
+                                               "qcfg"))
+    params, dev = out["params"], out["model"].device
+    del out
+    sargv = _with(serve_argv, device=dev.type, **flags)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        checkpoints.save(ckpt, 0, packed)
+        back = checkpoints.load_tree(ckpt, cfg, qcfg, device=dev)
+        want, got = checkpoints.flatten(packed), checkpoints.flatten(back)
+        same = sorted(want) == sorted(got) and all(
+            want[k][1] == got[k][1] and want[k][0].shape == got[k][0].shape
+            and want[k][0].tobytes() == got[k][0].tobytes() for k in want)
+        log(f"[{tag}] packed tree saved and read back in "
+            f"{time.perf_counter() - t0:.1f} s: {len(want)} leaves, "
+            f"{sum(a.nbytes for a, _ in want.values())} bytes, "
+            f"byte-equal {same}")
+        if not same:
+            raise RuntimeError(f"{tag}: the checkpoint round trip changed "
+                               f"the packed tree")
+        del back, want, got
+        mem, c_mem = _counted_serve(sargv, packed)
+        disk, c_disk = _counted_serve(sargv + ["--load-packed", ckpt], None)
+    streams = [r.out_tokens for r in mem["requests"]]
+    steps = mem["step_seconds"]
+    log(f"[{tag}] served {mem['generated']} + {disk['generated']} tokens "
+        f"(in memory, --load-packed) at {mem['tokens_per_s']:.2f} / "
+        f"{disk['tokens_per_s']:.2f} tok/s; decode step median "
+        f"{statistics.median(steps[1:]) * 1e3:.2f} ms (in memory); launches "
+        f"{c_mem} / {c_disk}")
+    if any(len(s) != 32 for s in streams):
+        raise RuntimeError(f"{tag}: a request did not produce 32 tokens")
+    if [r.out_tokens for r in disk["requests"]] != streams:
+        raise RuntimeError(f"{tag}: --load-packed streams differ from the "
+                           f"in-memory tree's")
+    log(f"[{tag}] --load-packed greedy streams equal the in-memory tree's")
+    main = ("w4a8_matmul",) if flags["abits"] < 16 else ("dequant_matmul",)
+    for c in (c_mem, c_disk):
+        require_launched(c, main + ("flash_prefill", "flash_decode"), tag)
+        for name in KERNELS:
+            counts[name] += c[name]
+    del disk
+    prompts = torch.from_numpy(np.stack(mem["prompts"]))
+    gen = torch.tensor(streams, dtype=torch.int32)
+    if flags["abits"] < 16:
+        gate_blockwise(torch, tag, mem, prompts, gen)
+    else:
+        a16_gate(torch, tag, mem, prompts, gen)
+        lp, ls = serve.packed_and_fake_logits(mem["model"], packed, fake,
+                                             mem["prompts"], streams)
+        rel = ((lp - ls).abs().max() / ls.abs().max()).item()
+        agree = (lp.argmax(-1) == ls.argmax(-1)).float().mean().item()
+        log(f"[{tag}] packed tree (kernels) vs fake-quant tree (float "
+            f"forward), teacher-forced over 4 x 32 tokens: max|dlogit| / "
+            f"max|logit| {rel:.3e} (tol {FAKE_TOL:.0e}); greedy agreement "
+            f"{agree:.4f}")
+        if not (torch.isfinite(lp).all() and rel <= FAKE_TOL):
+            raise RuntimeError(f"{tag}: the packed tree departs from the "
+                               f"calibrated simulation")
+        del lp, ls
+    del fake
+    return {"params": params, "packed": packed, "report": rep, "mem": mem,
+            "streams": streams}
+
+
+def a16_gate(torch, tag, out, prompts, gen) -> None:
+    """Teacher-forced logits (prefill + 8 decode steps) of the a16 path,
+    kernels against plain versions, within A16_TOL."""
+    a, p = teacher_forced_logits(torch, out, prompts, gen)
+    rel = ((a - p).abs().max() / p.abs().max()).item()
+    log(f"[{tag}] teacher-forced logits (prefill + 8 decode steps), "
+        f"kernels vs plain: max|dlogit| / max|logit| {rel:.3e} (tol "
+        f"{A16_TOL:.0e})")
+    if not (torch.isfinite(a).all() and rel <= A16_TOL):
+        raise RuntimeError(f"{tag}: kernels and plain versions disagree")
+
+
+def calibrate_phase(torch, ppl: dict) -> dict:
+    """Phase 8 (see the module docstring); returns its launch counts and
+    records each run's perplexities in ``ppl``."""
     t_phase = time.perf_counter()
     log(f"[calibrate] llama-7b widths, depth cut to {CALIB_LAYERS} of 32 "
         f"layers; 32 x 512 calibration tokens (the paper: 128 x 2048), batch "
         f"8, 3 epochs, alpha 0.1; float32, no TF32")
     counts = {name: 0 for name in KERNELS}
+    params = None
     for run, flags in CALIB_RUNS.items():
-        tag = f"calibrate-{run}"
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = calibrate.calibrate(calibrate.build_parser().parse_args(
-            _with(CALIB_ARGS, wbits=flags["wbits"], abits=flags["abits"],
-                  group=flags["group"])))
-        info, rep = out["info"], out["report"]
-        steps = info["step_seconds"]
-        kinds = {n: d["kind"] for n, d in info["block_qps"][0]["_sites"].items()}
-        log(f"[{tag}] w{flags['wbits']}a{flags['abits']}g{flags['group']} "
-            f"sites {kinds}: "
-            f"{len(steps)} steps, median {statistics.median(steps):.4f} s a "
-            f"step (min {min(steps):.4f}, max {max(steps):.4f}); calibration "
-            f"and finalize {time.perf_counter() - t0:.1f} s; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        log(f"[{tag}] epoch losses per block {info['block_losses']}; held-out "
-            f"16 x 512 perplexity fp {rep['fp_ppl']:.4f} -> quant "
-            f"{rep['quant_ppl']:.4f} (random weights: informative only)")
-        margins = _margins(torch, out)
-        log(f"[{tag}] dominance margins (Levy-Desplanques, > 0 = "
-            f"invertible): {margins}")
-        for i, losses in enumerate(info["block_losses"]):
-            if not (len(losses) == out["ccfg"].epochs
-                    and all(map(math.isfinite, losses))
-                    and losses[-1] < losses[0]):
-                raise RuntimeError(f"{tag}: block {i} losses {losses} are not "
-                                   f"finite and falling")
-        if not (margins and min(margins.values()) > 0):
-            raise RuntimeError(f"{tag}: an effective matrix is not strictly "
-                               f"diagonally dominant")
-        packed, fake, cfg, qcfg = (out[k] for k in ("packed", "fake", "cfg",
-                                                   "qcfg"))
-        dev = out["model"].device
+        out = calibrate_run(torch, f"calibrate-{run}", CALIB_ARGS,
+                            _with(SERVE_ARGS, layers=CALIB_LAYERS), flags,
+                            counts, params)
+        params = out["params"]
+        rep = out["report"]
+        ppl.setdefault("llama-7b", {"fp": rep["fp_ppl"]})[
+            f"affine w4a{flags['abits']}"] = rep["quant_ppl"]
         del out
-        sargv = _with(SERVE_ARGS, layers=CALIB_LAYERS, device=dev.type,
-                      **flags)
-        with tempfile.TemporaryDirectory() as ckpt:
-            t0 = time.perf_counter()
-            checkpoints.save(ckpt, 0, packed)
-            back = checkpoints.load_tree(ckpt, cfg, qcfg, device=dev)
-            want, got = checkpoints.flatten(packed), checkpoints.flatten(back)
-            same = sorted(want) == sorted(got) and all(
-                want[k][1] == got[k][1] and want[k][0].shape == got[k][0].shape
-                and want[k][0].tobytes() == got[k][0].tobytes() for k in want)
-            log(f"[{tag}] packed tree saved and read back in "
-                f"{time.perf_counter() - t0:.1f} s: {len(want)} leaves, "
-                f"{sum(a.nbytes for a, _ in want.values())} bytes, "
-                f"byte-equal {same}")
-            if not same:
-                raise RuntimeError(f"{tag}: the checkpoint round trip changed "
-                                   f"the packed tree")
-            del back, want, got
-            mem, c_mem = _counted_serve(sargv, packed)
-            disk, c_disk = _counted_serve(sargv + ["--load-packed", ckpt],
-                                          None)
-        streams = [r.out_tokens for r in mem["requests"]]
-        log(f"[{tag}] served {mem['generated']} + {disk['generated']} tokens "
-            f"(in memory, --load-packed) at {mem['tokens_per_s']:.2f} / "
-            f"{disk['tokens_per_s']:.2f} tok/s; launches {c_mem} / {c_disk}")
-        if any(len(s) != 32 for s in streams):
-            raise RuntimeError(f"{tag}: a request did not produce 32 tokens")
-        if [r.out_tokens for r in disk["requests"]] != streams:
-            raise RuntimeError(f"{tag}: --load-packed streams differ from the "
-                               f"in-memory tree's")
-        log(f"[{tag}] --load-packed greedy streams equal the in-memory tree's")
-        main = ("w4a8_matmul",) if flags["abits"] < 16 else ("dequant_matmul",)
-        for c in (c_mem, c_disk):
-            require_launched(c, main + ("flash_prefill", "flash_decode"), tag)
-            for name in KERNELS:
-                counts[name] += c[name]
-        del disk
-        prompts = torch.from_numpy(np.stack(mem["prompts"]))
-        gen = torch.tensor(streams, dtype=torch.int32)
-        if flags["abits"] < 16:
-            gate_blockwise(torch, tag, mem, prompts, gen)
-        else:
-            a, p = teacher_forced_logits(torch, mem, prompts, gen)
-            rel = ((a - p).abs().max() / p.abs().max()).item()
-            log(f"[{tag}] teacher-forced logits (prefill + 8 decode steps), "
-                f"kernels vs plain: max|dlogit| / max|logit| {rel:.3e} (tol "
-                f"{A16_TOL:.0e})")
-            if not (torch.isfinite(a).all() and rel <= A16_TOL):
-                raise RuntimeError(f"{tag}: kernels and plain versions "
-                                   f"disagree")
-            del a, p
-            lp, ls = serve.packed_and_fake_logits(mem["model"], packed, fake,
-                                                 mem["prompts"], streams)
-            rel = ((lp - ls).abs().max() / ls.abs().max()).item()
-            agree = (lp.argmax(-1) == ls.argmax(-1)).float().mean().item()
-            log(f"[{tag}] packed tree (kernels) vs fake-quant tree (float "
-                f"forward), teacher-forced over 4 x 32 tokens: max|dlogit| / "
-                f"max|logit| {rel:.3e} (tol {FAKE_TOL:.0e}); greedy agreement "
-                f"{agree:.4f}")
-            if not (torch.isfinite(lp).all() and rel <= FAKE_TOL):
-                raise RuntimeError(f"{tag}: the packed tree departs from the "
-                                   f"calibrated simulation")
-            del lp, ls
-        del mem, packed, fake
+    del params
     torch.cuda.empty_cache()
     log(f"[calibrate] phase wall time {time.perf_counter() - t_phase:.1f} s; "
         f"launches {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# 10. opt-125m at full width and depth: AffineQuant calibration and serving,
+#     and the RTN / AWQ / GPTQ baselines
+# ---------------------------------------------------------------------------
+
+OPT_SERVE_ARGS = _with(SERVE_ARGS, arch="opt-125m")
+OPT_CALIB_ARGS = _with(CALIB_ARGS, arch="opt-125m", layers=0)   # all 12
+OPT_POOL_PAGES = 10       # 4 x (128 + 32 + 1) positions need 12 pages of 64
+BASELINES = ("rtn", "awq", "gptq")
+
+
+def opt_phase(torch, ppl: dict) -> dict:
+    """Phase 10 (see the module docstring); returns its launch counts."""
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    log(f"[opt] opt-125m at full width and depth (12 layers, d 768, 12 "
+        f"heads of 64, d_ff 3072, vocab 50272), random seeded weights; "
+        f"calibration as phase 8 (32 x 512 tokens, batch 8, 3 epochs, alpha "
+        f"0.1); {card}")
+    counts = {name: 0 for name in KERNELS}
+    ppl["opt-125m"] = {}
+    # (a) W4A4 g128: diagonal LayerNorm sites (shifts into the norms' and
+    # the q/k/v / fc1 biases) and 12 headwise vo sites; linear kv8, then the
+    # preempting pool of pages and chunks of 64, then kv4
+    t0 = time.perf_counter()
+    a = calibrate_run(torch, "opt-a", OPT_CALIB_ARGS, OPT_SERVE_ARGS,
+                      CALIB_RUNS["a"], counts)
+    params = a["params"]
+    ppl["opt-125m"].update(fp=a["report"]["fp_ppl"],
+                           **{"affine w4a4": a["report"]["quant_ppl"]})
+    base = _with(OPT_SERVE_ARGS, **CALIB_RUNS["a"])
+    out, c = _serve_paged_run(torch, "opt-paged", a["packed"], base=base,
+                              page_size=64, prefill_chunk=64,
+                              num_pages=OPT_POOL_PAGES)
+    if out["preemptions"] < 1:
+        raise RuntimeError("opt-paged: the 10-page pool never preempted")
+    require_launched(c, ("flash_prefill_paged", "flash_decode_paged"),
+                     "opt-paged")
+    if [r.out_tokens for r in out["requests"]] != a["streams"]:
+        raise RuntimeError("opt-paged: the preempting pool's streams differ "
+                           "from the linear cache's")
+    log("[opt-paged] greedy streams equal the linear kv8 streams token for "
+        "token, through preemption and chunked resume")
+    _gate_served(torch, "opt-paged", out, page_size=64, chunk=64)
+    _add(counts, c)
+    del out
+    out, c = _serve_paged_run(torch, "opt-kv4", a["packed"], base=base,
+                              kvbits=4, page_size=64, prefill_chunk=64)
+    require_launched(c, ("flash_prefill_paged", "flash_decode_paged"),
+                     "opt-kv4")
+    _gate_served(torch, "opt-kv4", out, page_size=64, chunk=64)
+    _add(counts, c)
+    del out, a
+    log(f"[opt] (a) {time.perf_counter() - t0:.1f} s")
+    # (b) W4A16 g128: full 768 x 768 sites under the gradual mask
+    t0 = time.perf_counter()
+    b = calibrate_run(torch, "opt-b", OPT_CALIB_ARGS, OPT_SERVE_ARGS,
+                      CALIB_RUNS["b"], counts, params)
+    ppl["opt-125m"]["affine w4a16"] = b["report"]["quant_ppl"]
+    del b
+    log(f"[opt] (b) {time.perf_counter() - t0:.1f} s")
+    # (c) the baselines, on opt-125m and on phase 8's llama-7b-width blocks
+    t0 = time.perf_counter()
+    baselines(torch, "opt-125m", OPT_CALIB_ARGS, OPT_SERVE_ARGS, counts,
+              ppl, params)
+    del params
+    baselines(torch, "llama-7b", CALIB_ARGS,
+              _with(SERVE_ARGS, layers=CALIB_LAYERS), counts, ppl)
+    log(f"[opt] (c) {time.perf_counter() - t0:.1f} s")
+    for arch, row in ppl.items():
+        log(f"[opt] held-out 16 x 512 perplexity, {arch} (random weights, "
+            f"w4 g128): " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    torch.cuda.empty_cache()
+    log(f"[opt] phase 10 wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}; {card}")
+    return counts
+
+
+def _add(counts: dict, c: dict) -> None:
+    for name in KERNELS:
+        counts[name] += c[name]
+
+
+def _gate_served(torch, tag, out, **paged) -> None:
+    """The per-block teacher-forced check on a serving run's streams."""
+    import numpy as np
+    prompts = torch.from_numpy(np.stack(out["prompts"]))
+    gen = torch.tensor([r.out_tokens for r in out["requests"]],
+                       dtype=torch.int32)
+    gate_blockwise(torch, tag, out, prompts, gen, **paged)
+
+
+def baselines(torch, arch, calib_argv, serve_argv, counts, ppl,
+              params=None) -> None:
+    """(c) on one arch: RTN, AWQ and GPTQ at W4A16 g128 through
+    ``launch/calibrate.py``.  Gates: finite perplexities; AWQ's layer-output
+    MSE on each linear's calibration inputs at most RTN's (alpha 0 is
+    RTN); GPTQ's summed over each block below RTN's; RTN's packed tree
+    (``quantize_pack``, one launch a linear) byte-equal to
+    ``quantize_codes`` and dequantizing bit for bit to the fake-quant RTN
+    tree, then served through dequant_matmul and held end to end against
+    the plain versions."""
+    import numpy as np
+    from repro_torch.core.baselines import DENSE_LINEARS
+    from repro_torch.core.calibration import _get
+    from repro_torch.core.quantizer import quantize_codes
+    from repro_torch.launch import calibrate
+    flags = dict(wbits=4, abits=16, group=128)
+    row = ppl.setdefault(arch, {})
+    for method in BASELINES:
+        tag = f"{arch}-{method}"
+        c = {name: 0 for name in KERNELS}
+        with counted(c):
+            out = calibrate.calibrate(calibrate.build_parser().parse_args(
+                _with(calib_argv, method=method, **flags)), params)
+            torch.cuda.synchronize()
+        params, rep, info = out["params"], out["report"], out["info"]
+        row.setdefault("fp", rep["fp_ppl"])
+        row[method] = rep["quant_ppl"]
+        secs = rep["block_seconds"]
+        log(f"[{tag}] w4a16g128 x{out['cfg'].num_layers}: perplexity fp "
+            f"{rep['fp_ppl']:.4f} -> {rep['quant_ppl']:.4f}; seconds per "
+            f"block {[round(x, 3) for x in secs]} (median "
+            f"{statistics.median(secs):.3f}); launches {c}")
+        if not all(map(math.isfinite, (rep["fp_ppl"], rep["quant_ppl"]))):
+            raise RuntimeError(f"{tag}: a perplexity is not finite")
+        lin = [k for k, _ in DENSE_LINEARS
+               if k != "mlp/w_gate" or out["cfg"].act == "swiglu"]
+        moved = max(float((_get(out["fake"]["layers"], k)
+                           - _get(params["layers"], k))
+                          .abs().max()) for k in lin)
+        log(f"[{tag}] largest change of a weight, fake-quant tree vs float: "
+            f"{moved:.4e} (the float32 loss resolves the perplexity to "
+            f"~{rep['fp_ppl'] * 2 ** -20:.3f})")
+        if method == "awq":
+            worse = [(i, k) for i, blk in enumerate(info["linear_mse"])
+                     for k, (m, r) in blk.items() if not m <= r]
+            ratio = [max(m / r for m, r in blk.values())
+                     for blk in info["linear_mse"]]
+            log(f"[{tag}] layer-output MSE against RTN's on each linear's "
+                f"calibration inputs: largest ratio per block "
+                f"{[round(x, 4) for x in ratio]}")
+            if worse:
+                raise RuntimeError(f"{tag}: AWQ loses to RTN on {worse}")
+        elif method == "gptq":
+            sums = [(sum(m for m, _ in blk.values()),
+                     sum(r for _, r in blk.values()))
+                     for blk in info["linear_mse"]]
+            log(f"[{tag}] layer-output MSE summed over each block, GPTQ / "
+                f"RTN: {[f'{m:.4e} / {r:.4e}' for m, r in sums]}")
+            if not all(m < r for m, r in sums):
+                raise RuntimeError(f"{tag}: GPTQ does not beat RTN in every "
+                                   f"block")
+        else:
+            _rtn_packed(torch, tag, out, lin, c, quantize_codes)
+            mem, cs = _counted_serve(_with(serve_argv, arch=arch,
+                                           kvbits=16, **flags),
+                                     out["packed"])
+            require_launched(cs, ("dequant_matmul", "flash_prefill",
+                                  "flash_decode"), tag)
+            _add(c, cs)
+            prompts = torch.from_numpy(np.stack(mem["prompts"]))
+            gen = torch.tensor([r.out_tokens for r in mem["requests"]],
+                               dtype=torch.int32)
+            a16_gate(torch, tag, mem, prompts, gen)
+            del mem
+        _add(counts, c)
+        del out
+        torch.cuda.empty_cache()
+
+
+def _rtn_packed(torch, tag, out, lin, c, quantize_codes) -> None:
+    """RTN's packed tree: one quantize_pack launch a linear, the bytes of
+    ``quantize_codes``, dequantized equal to the fake-quant tree."""
+    from repro_torch.core.calibration import _get
+    cfg, qcfg = out["cfg"], out["qcfg"]
+    if c["quantize_pack"] != cfg.num_layers * len(lin):
+        raise RuntimeError(f"{tag}: {c['quantize_pack']} quantize_pack "
+                           f"launches, not one per linear")
+    for k in lin:
+        qt, w, fq = (_get(out[t]["layers"], k)
+                     for t in ("packed", "params", "fake"))
+        plain = quantize_codes(w, qcfg)
+        if not all(torch.equal(getattr(qt, f), getattr(plain, f))
+                   for f in ("packed", "scale", "zp")):
+            raise RuntimeError(f"{tag}: {k} packed by quantize_pack differs "
+                               f"from quantize_codes")
+        if not torch.equal(qt.dequantize(), fq):
+            raise RuntimeError(f"{tag}: {k} does not dequantize to the "
+                               f"fake-quant RTN weight")
+    log(f"[{tag}] packed tree: {len(lin)} x {cfg.num_layers} linears "
+        f"through quantize_pack, byte-equal to quantize_codes, dequantized "
+        f"bit for bit to the fake-quant tree")
 
 
 if __name__ == "__main__":

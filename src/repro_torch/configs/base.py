@@ -1,4 +1,4 @@
-"""Model configuration: the fields the dense llama path reads."""
+"""Model configuration: the fields the dense OPT and llama paths read."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,10 +15,10 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
     family: str = "dense"            # the port has the dense family only
-    act: str = "swiglu"
-    norm: str = "rmsnorm"
+    act: str = "swiglu"              # swiglu | relu
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
     qkv_bias: bool = False
-    rope_theta: float = 10000.0
+    rope_theta: float = 10000.0      # 0: sinusoidal absolute positions
     tie_embeddings: bool = False
     dtype: str = "float32"
 

@@ -20,11 +20,13 @@ and transformed activations ``h_t = (h - delta) @ inv(A1)`` after each norm
 differentiable (the STE through Q, autograd through the solve), and the
 optimizer is the reference's hand-rolled Adam with per-path learning rates.
 
-The dense llama family only; the reference's MoE branches are not ported
-(``core/sites.py`` refuses other families).  The reference runs each step
-under ``jax.jit``, where XLA turns a division by a constant into a multiply
-by its reciprocal; the port divides wherever the reference's eager code
-does, so its step matches the reference called eagerly.
+The dense family (OPT and llama); the reference's MoE branches are not
+ported (``core/sites.py`` refuses other families).  A no-RoPE (OPT) model
+gets its sinusoidal positions at the embedding (``transformer.embed``).
+The reference runs each step under ``jax.jit``, where XLA turns a division
+by a constant into a multiply by its reciprocal; the port divides wherever
+the reference's eager code does, so its step matches the reference called
+eagerly.
 """
 from __future__ import annotations
 
@@ -35,7 +37,6 @@ import time
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import affine as af
 from repro_torch.core import equivalence as eq
@@ -204,7 +205,7 @@ def transformed_weights(block_params: dict, qp: dict, cfg,
                 out[bname] = b
 
     mlp_site = "ln_mlp" if "ln_mlp" in specs else None
-    for sub in (("w_gate", "w_up", "w_down") if cfg.act in ("swiglu", "geglu")
+    for sub in (("w_gate", "w_up", "w_down") if cfg.act in layers.GATED
                 else ("w_up", "w_down")):
         w = block_params["mlp"][sub]
         if mlp_site and sub in ("w_gate", "w_up"):
@@ -239,9 +240,6 @@ def quant_block_forward(block_params: dict, qp: dict, x: torch.Tensor, cfg,
                         positions: torch.Tensor) -> torch.Tensor:
     """One block with transformed and quantized weights (Eq. 4's right
     side)."""
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act={cfg.act!r}: the port has swiglu "
-                                  f"only")
     specs = _specs_from(qp)
     ws = effective_weights(block_params, qp, cfg, qcfg, masks)
 
@@ -280,8 +278,7 @@ def quant_block_forward(block_params: dict, qp: dict, x: torch.Tensor, cfg,
         y = h2 @ ws[f"mlp/{wn}"]
         return y + ws[f"mlp/{bn}"] if f"mlp/{bn}" in ws else y
 
-    inner = F.silu(mlin("w_gate", "b_gate")) * mlin("w_up", "b_up")
-    return x + aq(inner) @ ws["mlp/w_down"]
+    return x + aq(layers.mlp_hidden(mlin, cfg.act)) @ ws["mlp/w_down"]
 
 
 def fp_block_forward(block_params: dict, x: torch.Tensor, cfg,

@@ -5,13 +5,18 @@
   into the norm.
 * ``vo``: between v_proj and out_proj, one head_dim^2 matrix per KV head
   (shared by its query group: the only tying that merges on both sides).
-* ``ln_mlp``: after the MLP norm, feeding the gate and up projections;
-  fc1 -> fc2 is excluded (the nonlinearity breaks the equivalence).
-* shifts ride on the two norm sites when activations are quantized.
+* ``ln_mlp``: after the MLP norm, feeding the gate and up projections
+  (the up projection alone in OPT's ReLU MLP); fc1 -> fc2 is excluded (the
+  nonlinearity breaks the equivalence).
+* shifts ride on the two norm sites when activations are quantized; a
+  diagonal site merges its shift into the norm's bias (a LayerNorm's
+  existing one, or a new one after an RMSNorm), and the shift corrects the
+  consumers' biases (``bq``/``bk``/``bv``, ``b_gate``/``b_up``).
 """
 from __future__ import annotations
 
 from repro_torch.core.affine import AffineSpec
+from repro_torch.models.layers import GATED
 
 _OTHER_FAMILIES = ("the MoE, mamba2 and griffin families' transform sites "
                    "are not ported yet (ROADMAP queue 1 item 11)")
@@ -38,6 +43,6 @@ def quantized_weights(cfg) -> list:
     gets LWC parameters), as ``/``-joined paths."""
     require_dense(cfg)
     ws = ["wq", "wk", "wv", "wo", "mlp/w_up", "mlp/w_down"]
-    if cfg.act in ("swiglu", "geglu"):
+    if cfg.act in GATED:
         ws.append("mlp/w_gate")
     return ws

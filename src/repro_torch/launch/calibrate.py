@@ -1,4 +1,5 @@
-"""PTQ calibration launcher: AffineQuant (or OmniQuant-diag) on the port.
+"""PTQ calibration launcher: AffineQuant, OmniQuant-diag and the weight-only
+baselines (RTN, AWQ, GPTQ) on the port.
 
     PYTHONPATH=src python -m repro_torch.launch.calibrate --arch llama-micro \
         --device cpu --method affine --wbits 4 --abits 4 --group 32 --epochs 2
@@ -13,9 +14,15 @@ held-out tokens 16 x ``--calib-seq`` (seed 999).  Writes, under ``--out``:
     <arch>-<method>-<tag>-packed/  the packed QTensor tree (step 0), which
                                    ``launch/serve.py --load-packed`` serves
     <arch>-<method>-<tag>.json     fp and quant perplexity, per-block losses
+                                   (affine, omniquant) or seconds (baselines)
 
-The baselines (rtn, awq, gptq) are not ported yet.  ``--device`` defaults to
-``cuda`` and raises when no CUDA device exists.
+The baselines run without clipping (``lwc=False``), as the reference's
+launcher does.  RTN's packed tree is the float tree on the RTN grid through
+``quantize_lm_packed`` (the ``quantize_pack`` kernel on the card); AWQ and
+GPTQ write no packed tree, and the report says why: AWQ's per-linear
+``diag(1/s)`` puts the rows of one group on different grids, and GPTQ's
+grid moves column by column.  ``--device`` defaults to ``cuda`` and raises
+when no CUDA device exists.
 """
 from __future__ import annotations
 
@@ -29,13 +36,23 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.baselines import METHODS, quantize_model_baseline
 from repro_torch.core.calibration import (CalibConfig, finalize_model,
                                           quantize_dense_model)
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.data import MarkovCorpus
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
+from repro_torch.serve.quantized import quantize_lm_packed
 from repro_torch.train import checkpoints
+
+NOT_PACKED = {
+    "awq": "not packed: AWQ's effective weight diag(1/s) Q(diag(s) W) "
+           "scales each input row by its own 1/s, so a group's rows are on "
+           "no one grid",
+    "gptq": "not packed: GPTQ's grid moves column by column with the "
+            "compensated weights (the fake-quant tree runs through the "
+            "float forward)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,23 +90,21 @@ def eval_ppl(model, params: dict, tokens) -> float:
 
 
 def calibrate(args: argparse.Namespace, params=None) -> dict:
-    """Calibrate once; returns the float, fake-quant and packed trees, the
-    configs, the calibration info (``block_qps``, losses, step seconds) and
-    the report.  ``params`` reuses a float tree of the same arch and
-    depth."""
+    """Quantize once; returns the float, fake-quant and packed trees (the
+    packed tree is None for awq and gptq), the configs, the calibration
+    info (``block_qps``, losses and step seconds; a baseline's
+    ``block_seconds``) and the report.  ``params`` reuses a float tree of
+    the same arch and depth."""
     device = resolve_device(args.device)
     # float32 stays float32 on the card: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.method not in ("affine", "omniquant"):
-        raise NotImplementedError(
-            f"--method {args.method}: the rtn/awq/gptq baselines "
-            f"(core/baselines.py) are not ported yet (ROADMAP queue 1 item 9)")
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    baseline = args.method in METHODS
     qcfg = QuantConfig(w_bits=args.wbits, a_bits=args.abits,
-                       group_size=args.group)
+                       group_size=args.group, lwc=not baseline)
     model = build_model(cfg, device)
     if params is None:
         params = (load_float_params(args.ckpt, cfg, qcfg, device)
@@ -98,15 +113,26 @@ def calibrate(args: argparse.Namespace, params=None) -> dict:
     calib = torch.from_numpy(corpus.sample(args.calib_samples,
                                            args.calib_seq, seed=777))
     test = torch.from_numpy(corpus.sample(16, args.calib_seq, seed=999))
-    ccfg = CalibConfig(epochs=args.epochs, alpha=args.alpha,
-                       use_affine=args.method == "affine")
     report = {"method": args.method, "config": qcfg.tag(),
               "fp_ppl": eval_ppl(model, params, test)}
-    fake, info = quantize_dense_model(params, cfg, qcfg, ccfg, calib)
-    report["block_final_losses"] = info["final_losses"]
+    ccfg = None
+    if baseline:
+        info: dict = {}
+        fake = quantize_model_baseline(params, cfg, qcfg, calib, args.method,
+                                       info=info)
+        report["block_seconds"] = info["block_seconds"]
+        packed = (quantize_lm_packed(params, cfg, qcfg)
+                  if args.method == "rtn" else None)
+        if packed is None:
+            report["packed"] = NOT_PACKED[args.method]
+    else:
+        ccfg = CalibConfig(epochs=args.epochs, alpha=args.alpha,
+                           use_affine=args.method == "affine")
+        fake, info = quantize_dense_model(params, cfg, qcfg, ccfg, calib)
+        report["block_final_losses"] = info["final_losses"]
+        packed = finalize_model(params, info["block_qps"], cfg, qcfg, ccfg,
+                                deploy="packed")
     report["quant_ppl"] = eval_ppl(model, fake, test)
-    packed = finalize_model(params, info["block_qps"], cfg, qcfg, ccfg,
-                            deploy="packed")
     return {"cfg": cfg, "qcfg": qcfg, "ccfg": ccfg, "model": model,
             "params": params, "fake": fake, "packed": packed, "info": info,
             "report": report}
@@ -125,10 +151,14 @@ def main(argv=None) -> int:
     root.mkdir(parents=True, exist_ok=True)
     name = f"{args.arch}-{args.method}-{out['qcfg'].tag()}"
     checkpoints.save(root / name, 0, out["fake"])
-    packed_dir = checkpoints.save(root / f"{name}-packed", 0, out["packed"])
+    wrote = [str(root / name)]
+    if out["packed"] is not None:
+        wrote.append(str(checkpoints.save(root / f"{name}-packed", 0,
+                                          out["packed"]).parent))
+    else:
+        print(f"[calibrate] {r['packed']}")
     (root / f"{name}.json").write_text(json.dumps(r, indent=2))
-    print(f"[calibrate] wrote {root / name}, {packed_dir.parent} and "
-          f"{root / name}.json")
+    print(f"[calibrate] wrote {', '.join(wrote)} and {root / name}.json")
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Serve a packed llama model from seeded random weights.
+"""Serve a packed OPT or llama model from seeded random weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
         --wbits 4 --group 128 --abits 4 --kvbits 8 --requests 4 \

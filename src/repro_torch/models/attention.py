@@ -1,10 +1,12 @@
-"""Reference attention of the float path: causal GQA, no window.
+"""Attention of the float path: causal GQA, no window.
 
 q (B, T, Hq, D), k/v (B, T, Hkv, D); q is viewed as (B, T, Hkv, G, D) so
-K/V are never repeated.  The (B, Hkv, G, T, T) scores are materialised,
-as in the reference's ``dense_attention``; the reference switches to a
-chunked online-softmax path above ``CHUNK_THRESHOLD`` positions, which the
-port does not have yet.
+K/V are never repeated.  ``dense_attention`` materialises the (B, Hkv, G,
+T, T) scores, as the reference's does; above ``CHUNK_THRESHOLD`` positions
+(with T and S multiples of the blocks) ``attention`` runs
+``chunked_attention``, the reference's online-softmax recurrence over
+blocks of 1024 positions, which bounds the scores to one block pair.  Both
+are plain torch, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 8192      # the reference's attn_chunk_threshold
+BLOCK = 1024                # its attn_block_q and attn_block_kv
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -30,11 +33,56 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out.to(q.dtype).reshape(b, t, hq, d)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      block_q: int = BLOCK, block_kv: int = BLOCK
+                      ) -> torch.Tensor:
+    """Causal flash-style attention: per query block, a running (max,
+    denominator, accumulator) over the KV blocks, in float32.  Needs
+    T % block_q == 0 and S % block_kv == 0.  Every KV block is visited, as
+    in the reference's scan (fully masked ones add exp(-1e30 - m) = 0)."""
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if t % block_q or s % block_kv:
+        raise ValueError(f"chunked_attention needs T ({t}) and S ({s}) to be "
+                         f"multiples of block_q ({block_q}) and block_kv "
+                         f"({block_kv})")
+    scale = d ** -0.5
+    qh = q.reshape(b, t // block_q, block_q, hkv, g, d)
+    kh = k.reshape(b, s // block_kv, block_kv, hkv, d)
+    vh = v.reshape(b, s // block_kv, block_kv, hkv, d)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    zero, neg = (torch.tensor(x, **f32) for x in (0.0, NEG_INF))
+    out = []
+    for qi in range(t // block_q):
+        q_pos = qi * block_q + torch.arange(block_q, device=q.device)
+        m = torch.full((b, hkv, g, block_q), NEG_INF, **f32)
+        den = torch.zeros((b, hkv, g, block_q), **f32)
+        acc = torch.zeros((b, hkv, g, block_q, d), **f32)
+        for ki in range(s // block_kv):
+            kv_pos = ki * block_kv + torch.arange(block_kv, device=q.device)
+            sc = torch.einsum("bqhgd,bkhd->bhgqk", qh[:, qi],
+                              kh[:, ki]).to(torch.float32) * scale
+            sc = sc + torch.where(q_pos[:, None] >= kv_pos[None, :], zero,
+                                  neg)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype),
+                              vh[:, ki]).to(torch.float32)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        blk = acc / torch.clamp_min(den, 1e-30)[..., None]
+        out.append(torch.einsum("bhgqd->bqhgd", blk))
+    return torch.stack(out, 1).reshape(b, t, hq, d).to(q.dtype)
+
+
 def attention(q, k, v) -> torch.Tensor:
-    """Causal dense attention up to ``CHUNK_THRESHOLD`` positions."""
-    if max(q.shape[1], k.shape[1]) > CHUNK_THRESHOLD:
-        raise NotImplementedError(
-            f"{max(q.shape[1], k.shape[1])} positions: the reference runs "
-            f"chunked_attention above {CHUNK_THRESHOLD}, which is not ported "
-            f"yet (ROADMAP queue 1 item 7)")
+    """Causal attention: dense up to ``CHUNK_THRESHOLD`` positions, chunked
+    above it when the lengths are multiples of the blocks (the reference's
+    dispatch)."""
+    t, s = q.shape[1], k.shape[1]
+    if max(t, s) > CHUNK_THRESHOLD and t % BLOCK == 0 and s % BLOCK == 0:
+        return chunked_attention(q, k, v)
     return dense_attention(q, k, v)

@@ -1,8 +1,9 @@
-"""Seeded random initialisation of the dense llama trunk.
+"""Seeded random initialisation of the dense OPT and llama trunks.
 
 Same shapes and scales as the reference (truncated-normal fan-in linears
 cut at two standard deviations, normal(0.02) embeddings, unit norm
-scales, zero qkv biases), drawn from an explicit ``torch.Generator``, so
+scales, zero LayerNorm biases and qkv biases, a gate weight for the gated
+MLPs only), drawn from an explicit ``torch.Generator``, so
 the bits differ from the reference's.  Layer parameters are stacked with a
 leading ``L`` axis; linear weights are (in, out) and apply as ``x @ w``.
 """
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor
+from repro_torch.models.layers import GATED
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, device,
@@ -30,20 +32,28 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, device
                        device=device) * 0.02
 
 
+def init_norm(d: int, kind: str, device) -> dict:
+    """Unit scale; a LayerNorm also has a zero bias."""
+    p = {"scale": torch.ones((d,), device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), device=device)
+    return p
+
+
 def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """One layer's parameters (no leading L axis)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    ones = lambda: {"scale": torch.ones((d,), device=device)}
-    p = {"ln_attn": ones(),
+    p = {"ln_attn": init_norm(d, cfg.norm, device),
          "wq": dense_init(gen, d, hq * hd, device),
          "wk": dense_init(gen, d, hkv * hd, device),
          "wv": dense_init(gen, d, hkv * hd, device),
          "wo": dense_init(gen, hq * hd, d, device),
-         "ln_mlp": ones(),
+         "ln_mlp": init_norm(d, cfg.norm, device),
          "mlp": {"w_up": dense_init(gen, d, cfg.d_ff, device),
-                 "w_down": dense_init(gen, cfg.d_ff, d, device),
-                 "w_gate": dense_init(gen, d, cfg.d_ff, device)}}
+                 "w_down": dense_init(gen, cfg.d_ff, d, device)}}
+    if cfg.act in GATED:
+        p["mlp"]["w_gate"] = dense_init(gen, d, cfg.d_ff, device)
     if cfg.qkv_bias:
         for name, width in (("bq", hq * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
@@ -54,7 +64,7 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 def init_top(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Embedding, final norm and (untied) head."""
     top = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, device),
-           "ln_f": {"scale": torch.ones((cfg.d_model,), device=device)}}
+           "ln_f": init_norm(cfg.d_model, cfg.norm, device)}
     if not cfg.tie_embeddings:
         top["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, device,
                                  std=0.02)

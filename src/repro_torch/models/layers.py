@@ -1,31 +1,42 @@
-"""RMSNorm, rotary position embedding, the SwiGLU MLP and the token
-cross entropy, as the reference computes them (float32 math, result in the
-input's dtype)."""
+"""RMSNorm and LayerNorm, rotary position embedding, the SwiGLU and ReLU
+MLPs and the token cross entropy, as the reference computes them (float32
+math, result in the input's dtype)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+NORMS = ("rmsnorm", "layernorm")
+GATED = ("swiglu",)          # MLPs with a gate weight beside the up weight
+
+
+def _mean64(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, accumulated in float64 and rounded to
+    float32.  A float32 reduction on the card sums in an order set by the
+    tensor's shape, so a row normalised inside a prefill chunk could differ
+    in its last bit from the same row alone (decode), and at a4 such a bit
+    can move an activation code.  Summed in float64, the order's effect lies
+    far below float32's rounding step and the rounded mean is the same for
+    every row count."""
+    return torch.mean(x, dim=-1, keepdim=True,
+                      dtype=torch.float64).to(torch.float32)
+
 
 def apply_norm(params: dict, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm; a ``bias`` entry is honoured (merging a shifted affine
-    transform into the norm introduces one)."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm={kind!r}: the port has rmsnorm "
-                                  f"only (layernorm comes with OPT)")
+    """RMSNorm / LayerNorm.  A ``bias`` entry is honoured for either kind
+    (merging a shifted affine transform into an RMSNorm introduces one)."""
     xf = x.to(torch.float32)
-    # the mean accumulates in float64: a float32 reduction on the card sums
-    # in an order set by the tensor's shape, so a row normalised inside a
-    # prefill chunk could differ in its last bit from the same row alone
-    # (decode), and at a4 such a bit can move an activation code.  Summed
-    # in float64, the order's effect lies far below float32's rounding step
-    # and the rounded mean is the same for every row count.
-    var = torch.mean(xf * xf, dim=-1, keepdim=True,
-                     dtype=torch.float64).to(torch.float32)
-    out = xf * torch.rsqrt(var + eps) * params["scale"].to(torch.float32)
+    if kind == "rmsnorm":
+        xhat = xf * torch.rsqrt(_mean64(xf * xf) + eps)
+    elif kind == "layernorm":
+        centred = xf - _mean64(xf)
+        xhat = centred * torch.rsqrt(_mean64(centred * centred) + eps)
+    else:
+        raise ValueError(f"norm={kind!r}: use one of {NORMS}")
+    out = xhat * params["scale"].to(torch.float32)
     if "bias" in params:
         out = out + params["bias"].to(torch.float32)
     return out.to(x.dtype)
@@ -53,19 +64,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def mlp_hidden(lin: Callable[[str, str], torch.Tensor], act: str
+               ) -> torch.Tensor:
+    """The MLP's hidden activation from ``lin(weight key, bias key)``, the
+    linear product of the MLP input with one of its weights: a gate and an
+    up product for SwiGLU, the up product alone for ReLU (OPT).  Every
+    forward of the port (float, calibration, baselines, packed) goes
+    through it, so they name the same linears."""
+    if act == "swiglu":
+        return F.silu(lin("w_gate", "b_gate")) * lin("w_up", "b_up")
+    if act == "relu":
+        return F.relu(lin("w_up", "b_up"))
+    raise ValueError(f"act={act!r}: the port has swiglu and relu, the "
+                     f"MLPs of the paper's two families")
+
+
 def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """SwiGLU MLP; ``b_gate`` / ``b_up`` are honoured when present (a
-    shifted transform merged into the MLP norm introduces them)."""
-    if act != "swiglu":
-        raise NotImplementedError(f"act={act!r}: the port has swiglu only "
-                                  f"(relu and gelu come with OPT)")
+    """The MLP; ``b_gate`` / ``b_up`` are honoured when present (a shifted
+    transform merged into the MLP norm introduces them)."""
 
     def lin(w_key, b_key):
         y = x @ params[w_key]
         return y + params[b_key] if b_key in params else y
 
-    return (F.silu(lin("w_gate", "b_gate")) * lin("w_up", "b_up")) \
-        @ params["w_down"]
+    return mlp_hidden(lin, act) @ params["w_down"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

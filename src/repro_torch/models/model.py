@@ -1,4 +1,5 @@
-"""The float dense llama model of the port: ``init``, ``forward``, ``loss``.
+"""The float dense model of the port (OPT and llama): ``init``, ``forward``,
+``loss``.
 
 Serving the float model through the Engine is not ported yet (ROADMAP
 queue 1 item 7); the packed model is served by ``serve/quantized.py``.

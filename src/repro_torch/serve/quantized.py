@@ -1,4 +1,5 @@
-"""Packed low-bit serving of a dense llama model (the paper's deployment).
+"""Packed low-bit serving of a dense OPT or llama model (the paper's
+deployment).
 
 Every linear of the trunk is a :class:`QTensor`.  At ``a_bits < 16`` each
 matmul goes through ``ops.quant_matmul`` (per-token dynamic activation
@@ -13,7 +14,13 @@ and ``decode_step`` take either, whole-prompt ``prefill`` fills a linear
 one.  Full-matrix transform sites keep their activation factor
 (``attn_t`` / ``mlp_t`` = {"a_inv", optional "shift"}) and merged biases
 (``bq``/``bk``/``bv``, ``b_gate``/``b_up``) are honoured, as calibrated
-trees carry them.
+trees carry them.  OPT layers (LayerNorm, the ReLU MLP, qkv biases) run
+the same code; a no-RoPE model adds ``sinusoidal_at`` of each row's
+positions to its embeddings in prefill chunks and decode steps alike.
+
+A raw float tree is packed on the RTN grid by ``ops.quantize_pack``: the
+``quantize_pack`` kernel for CUDA weights, one (K, N) matrix at a time,
+and its plain version (byte-equal to ``quantize_codes``) on the CPU.
 
 Cache capacity: a write past ``max_len`` (or into an unallocated page) is
 dropped (slot ``max_len - 1`` keeps its token) and ``len`` saturates at
@@ -29,18 +36,19 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor
-from repro_torch.core.quantizer import QuantConfig, quantize_codes
+from repro_torch.core.quantizer import QuantConfig, effective_group_size
+from repro_torch.core.sites import require_dense
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.dequant_matmul import KERNEL_BITS
 from repro_torch.kernels.quantize_pack import (KV_BLOCK, kv4_check_head_dim,
                                                kv4_quantize)
 from repro_torch.models import layers
-from repro_torch.models.init import layer
+from repro_torch.models.init import layer, stack_layers
+from repro_torch.models.transformer import sinusoidal_at
 from repro_torch.serve import kv_cache
 from repro_torch.serve.kv_cache import PagedKVCache, chunk_write_index
 
@@ -48,15 +56,31 @@ PACKED_WEIGHTS = ("wq", "wk", "wv", "wo")
 PACKED_MLP = ("w_gate", "w_up", "w_down")
 
 
+def rtn_pack(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
+    """A float (K, N) or layer-stacked (L, K, N) weight on the RTN grid as
+    a QTensor, through ``ops.quantize_pack`` one (K, N) matrix at a time.
+    A symmetric grid, which the packer has no input for, is refused."""
+    if qcfg.symmetric:
+        raise NotImplementedError(
+            "RTN packing is asymmetric min/max only (quantize_pack has no "
+            "symmetric grid)")
+    if w.ndim == 3:
+        return stack_layers([rtn_pack(wi, qcfg) for wi in w])
+    g = effective_group_size(w.shape[0], qcfg.group_size)
+    packed, scale, zp = ops.quantize_pack(
+        w.to(torch.float32).contiguous(), bits=qcfg.w_bits, group_size=g)
+    return QTensor(packed, scale, zp, qcfg.w_bits, g)
+
+
 def quantize_layers(lp: dict, qcfg: QuantConfig) -> dict:
-    """Packed form of a (stacked) layer tree: QTensor linears, norms,
-    transforms and biases kept."""
+    """Packed form of a (stacked) layer tree: QTensor linears on the RTN
+    grid (:func:`rtn_pack`), norms, transforms and biases kept."""
     out = {k: lp[k] for k in ("ln_attn", "ln_mlp", "attn_t", "mlp_t",
                               "bq", "bk", "bv") if k in lp}
     for k in PACKED_WEIGHTS:
-        out[k] = quantize_codes(lp[k], qcfg)
+        out[k] = rtn_pack(lp[k], qcfg)
     mlp = lp["mlp"]
-    out["mlp"] = {k: quantize_codes(mlp[k], qcfg) for k in PACKED_MLP}
+    out["mlp"] = {k: rtn_pack(mlp[k], qcfg) for k in PACKED_MLP if k in mlp}
     out["mlp"].update({k: mlp[k] for k in ("b_gate", "b_up") if k in mlp})
     return out
 
@@ -116,14 +140,10 @@ class QuantizedModel:
         cfg, qcfg = self.cfg, self.qcfg
         if self.mode not in ops.MODES:
             raise ValueError(f"mode={self.mode!r}: use one of {ops.MODES}")
-        missing = []
-        if cfg.act != "swiglu" or cfg.norm != "rmsnorm" or not cfg.rope_theta:
-            missing.append("OPT-style layers (relu, layernorm, sinusoidal "
-                           "positions)")
+        require_dense(cfg)
         if qcfg.w_bits not in KERNEL_BITS:
-            missing.append(f"{qcfg.w_bits}-bit weights")
-        if missing:
-            raise NotImplementedError("not ported yet: " + ", ".join(missing))
+            raise NotImplementedError(f"not ported yet: {qcfg.w_bits}-bit "
+                                      f"weights (ROADMAP queue 1 item 8)")
         if qcfg.a_bits < 16 and not 2 <= qcfg.a_bits <= 8:
             raise ValueError(f"a_bits={qcfg.a_bits}: use 2..8 or >= 16")
         if qcfg.kv_bits < 16 and qcfg.kv_bits not in (4, 8):
@@ -190,6 +210,15 @@ class QuantizedModel:
                                 for t in (k, v))
         return kq, vq, k_s, v_s
 
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; a no-RoPE model adds the sinusoidal
+        embedding of ``pos`` (tokens' shape)."""
+        x = params["embed"][tokens.long()]
+        if not self.cfg.rope_theta:
+            x = x + sinusoidal_at(pos, self.cfg.d_model).to(x.dtype)
+        return x
+
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = layers.apply_norm(params["ln_f"], x, self.cfg.norm)
         head = params.get("head")
@@ -238,8 +267,8 @@ class QuantizedModel:
         """Embed -> blocks (cache write + as-stored attention); returns the
         pre-norm hidden states (B, C, d) and updates ``cache`` in place."""
         bsz, c = tokens.shape
-        x = params["embed"][tokens.long()]
         pos = offset[:, None] + torch.arange(c, device=self.device)[None, :]
+        x = self._embed(params, tokens, pos)
         page_table = None
         if isinstance(cache, PagedKVCache):
             page_table, cap = cache.page_table, cache.capacity
@@ -262,7 +291,8 @@ class QuantizedModel:
         return x
 
     def _qkv(self, p, x, pos):
-        """norm -> activation transform -> packed q/k/v -> RoPE."""
+        """norm -> activation transform -> packed q/k/v (+ biases) ->
+        RoPE (RoPE models)."""
         cfg = self.cfg
         b, t = x.shape[0], x.shape[1]
         h = layers.apply_norm(p["ln_attn"], x, cfg.norm)
@@ -271,10 +301,11 @@ class QuantizedModel:
         if "bq" in p:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         hd = cfg.resolved_head_dim
-        q = layers.apply_rope(q.reshape(b, t, cfg.num_heads, hd), pos,
-                              cfg.rope_theta)
-        k = layers.apply_rope(k.reshape(b, t, cfg.num_kv_heads, hd), pos,
-                              cfg.rope_theta)
+        q = q.reshape(b, t, cfg.num_heads, hd)
+        k = k.reshape(b, t, cfg.num_kv_heads, hd)
+        if cfg.rope_theta > 0:
+            q = layers.apply_rope(q, pos, cfg.rope_theta)
+            k = layers.apply_rope(k, pos, cfg.rope_theta)
         return q, k, v.reshape(b, t, cfg.num_kv_heads, hd)
 
     def _block_prefill_chunk(self, p, x, kv, pos, offset, chunk_len, write,
@@ -299,10 +330,11 @@ class QuantizedModel:
         row's K/V at position ``len`` (dropped when the row is full, or its
         page unallocated) and advancing ``len`` (saturating at capacity)."""
         token = torch.as_tensor(token).to(self.device)
-        x = params["embed"][token.long()]
-        if isinstance(cache, PagedKVCache):
+        paged = isinstance(cache, PagedKVCache)
+        cur_len = cache.lens if paged else cache["len"]
+        x = self._embed(params, token, cur_len[:, None])
+        if paged:
             return self._decode_step_paged(params, x, cache)
-        cur_len = cache["len"]
         s = cache["k"].shape[2]
         for i in range(self.cfg.num_layers):
             x = self._block_decode(layer(params["layers"], i), x,
@@ -365,5 +397,4 @@ class QuantizedModel:
             y = self._mm(h, mp[wn])
             return y + mp[bn] if bn in mp else y
 
-        inner = F.silu(lin("w_gate", "b_gate")) * lin("w_up", "b_up")
-        return self._mm(inner, mp["w_down"])
+        return self._mm(layers.mlp_hidden(lin, self.cfg.act), mp["w_down"])

@@ -337,13 +337,18 @@ def test_quantize_dense_model_beats_rtn():
 
 
 def test_other_families_and_baselines_refuse():
+    """The non-dense families refuse in calibration and in the baselines
+    (which are ported: only a method they do not have refuses)."""
+    from repro_torch.core.baselines import quantize_model_baseline
     cfg = dataclasses.replace(get_config("llama-micro"), family="moe")
     with pytest.raises(NotImplementedError, match="item 11"):
         sites.block_sites(cfg, True)
-    args = calibrate_cli.build_parser().parse_args(
-        ["--arch", "llama-micro", "--device", "cpu", "--method", "gptq"])
-    with pytest.raises(NotImplementedError, match="baselines"):
-        calibrate_cli.calibrate(args)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        quantize_model_baseline({}, cfg, QuantConfig(), toks, "gptq")
+    with pytest.raises(ValueError, match="smoothquant"):
+        quantize_model_baseline({}, get_config("llama-micro"), QuantConfig(),
+                                toks, "smoothquant")
 
 
 def test_calibrate_then_serve_the_packed_tree(tmp_path, capsys):

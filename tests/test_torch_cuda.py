@@ -791,3 +791,57 @@ def test_rmsnorm_rows_equal_at_every_row_count(dev):
     rows = torch.cat([layers.apply_norm(p, x[:, i:i + 1], "rmsnorm")
                       for i in range(20)], dim=1)
     assert torch.equal(whole, rows)
+
+
+def test_layernorm_rows_equal_at_every_row_count(dev):
+    """OPT's LayerNorm keeps the same contract as the RMSNorm above: a row
+    normalised inside a 20-row chunk equals the row alone, bit for bit
+    (mean and variance accumulate in float64), at opt-125m's width; and
+    so do the sinusoidal positions of a chunk and of single positions."""
+    from repro_torch.models import layers, transformer
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(4, 20, 768, device=dev, generator=gen) * 3 + 0.5
+    p = {"scale": torch.rand(768, device=dev, generator=gen) + 0.5,
+         "bias": torch.randn(768, device=dev, generator=gen) * 0.1}
+    whole = layers.apply_norm(p, x, "layernorm")
+    rows = torch.cat([layers.apply_norm(p, x[:, i:i + 1], "layernorm")
+                      for i in range(20)], dim=1)
+    assert torch.equal(whole, rows)
+    pos = torch.arange(300, 512, device=dev)
+    table = transformer.sinusoidal_at(pos, 768)
+    alone = torch.cat([transformer.sinusoidal_at(pos[i:i + 1], 768)
+                       for i in range(0, 212, 7)])
+    assert torch.equal(table[::7], alone)
+    assert torch.equal(table.cpu(),
+                       transformer.sinusoidal_at(pos.cpu(), 768))
+
+
+@pytest.mark.parametrize("arch", ["opt-micro", "llama-micro"])
+def test_quantize_layers_through_the_kernel(dev, arch):
+    """RTN packing of a (stacked) float layer tree on the card runs the
+    quantize_pack kernel, one launch per (K, N) matrix, and gives
+    ``quantize_codes``' bytes (packed codes, scales, zero points)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig, quantize_codes
+    from repro_torch.kernels import _lib
+    from repro_torch.models.init import init_lm
+    from repro_torch.serve.quantized import (PACKED_MLP, PACKED_WEIGHTS,
+                                             quantize_layers)
+    cfg = get_config(arch)
+    lp = init_lm(cfg, torch.Generator(device="cuda").manual_seed(2),
+                 dev)["layers"]
+    for qcfg in (QuantConfig(w_bits=4, group_size=32),
+                 QuantConfig(w_bits=2, group_size=0)):
+        _lib.reset_launches()
+        got = quantize_layers(lp, qcfg)
+        torch.cuda.synchronize()
+        names = [(got[k], lp[k]) for k in PACKED_WEIGHTS]
+        names += [(got["mlp"][k], lp["mlp"][k]) for k in PACKED_MLP
+                  if k in lp["mlp"]]
+        assert _lib.LAUNCHES["quantize_pack"] == cfg.num_layers * len(names)
+        for qt, w in names:
+            want = quantize_codes(w, qcfg)
+            assert (qt.bits, qt.group_size) == (want.bits, want.group_size)
+            for f in ("packed", "scale", "zp"):
+                assert torch.equal(getattr(qt, f), getattr(want, f)), f
+        assert torch.equal(got["ln_attn"]["scale"], lp["ln_attn"]["scale"])

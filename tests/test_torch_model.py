@@ -85,10 +85,26 @@ def test_dense_attention_matches_reference(g):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6)
 
 
-def test_long_sequences_refuse():
-    q = torch.zeros((1, attention.CHUNK_THRESHOLD + 1, 1, 8))
-    with pytest.raises(NotImplementedError, match="chunked_attention"):
-        attention.attention(q, q, q)
+def test_long_sequences_refuse(monkeypatch):
+    """Past the threshold, with lengths that are block multiples, the port
+    runs the chunked path (as the reference dispatches), no longer a
+    refusal; a length off the blocks stays dense.  Thresholds shrunk to 32
+    positions and blocks of 16."""
+    calls = []
+    chunked = attention.chunked_attention
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 32)
+    monkeypatch.setattr(attention, "BLOCK", 16)
+    monkeypatch.setattr(attention, "chunked_attention",
+                        lambda *a: calls.append(1) or chunked(*a, 16, 16))
+    rng = np.random.default_rng(10)
+    for t, routed in ((64, 1), (40, 0)):
+        calls.clear()
+        q = T(rng.standard_normal((1, t, 2, 8)).astype(np.float32))
+        k = T(rng.standard_normal((1, t, 1, 8)).astype(np.float32))
+        got = attention.attention(q, k, k)
+        assert len(calls) == routed
+        torch.testing.assert_close(got, attention.dense_attention(q, k, k),
+                                   rtol=1e-5, atol=2e-6)
 
 
 def test_mlp_and_cross_entropy_match_reference(setup):
@@ -102,8 +118,13 @@ def test_mlp_and_cross_entropy_match_reference(setup):
         layers.apply_mlp(tmlp, T(x), "swiglu").numpy(),
         np.asarray(jlayers.apply_mlp(jmlp, jnp.asarray(x), "swiglu")),
         rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        layers.apply_mlp(tmlp, T(x), "relu")
+    relu = {k: v for k, v in jmlp.items() if k != "w_gate"}
+    np.testing.assert_allclose(
+        layers.apply_mlp(from_jax_params(_np(relu)), T(x), "relu").numpy(),
+        np.asarray(jlayers.apply_mlp(relu, jnp.asarray(x), "relu")),
+        rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="act="):
+        layers.apply_mlp(tmlp, T(x), "tanh")
     logits = rng.standard_normal((2, 7, 50)).astype(np.float32) * 4
     labels = rng.integers(0, 50, (2, 7)).astype(np.int32)
     mask = (rng.random((2, 7)) < 0.6).astype(np.float32)

@@ -180,8 +180,8 @@ def test_unported_features_raise(setup):
     for q in (QuantConfig(w_bits=3),):
         with pytest.raises(NotImplementedError):
             QuantizedModel(tcfg, q, device="cpu")
-    with pytest.raises(NotImplementedError):
-        QuantizedModel(dataclasses.replace(tcfg, norm="layernorm"),
+    with pytest.raises(NotImplementedError, match="item 11"):
+        QuantizedModel(dataclasses.replace(tcfg, family="moe"),
                        QuantConfig(), device="cpu")
 
 
@@ -213,3 +213,14 @@ def test_layerwise_random_packing_equals_packing_the_float_tree():
             assert torch.equal(getattr(a, name), getattr(b, name))
     assert torch.equal(wl["bq"], gl["bq"])
     assert torch.equal(want["embed"], got["embed"])
+
+
+def test_rtn_pack_refuses_a_symmetric_grid():
+    """RTN packing has one route, ``ops.quantize_pack``, whose grid is
+    asymmetric min/max; a symmetric grid is refused, not packed another
+    way."""
+    from repro_torch.serve.quantized import rtn_pack
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, 16)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="symmetric"):
+        rtn_pack(w, QuantConfig(w_bits=4, group_size=32, symmetric=True))
