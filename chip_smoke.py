@@ -41,6 +41,12 @@ failure raises (exit code != 0).
    dequant_matmul at M = 4 and 512 for 768 -> 3072, the four attention
    kernels at B 4, Hkv 12, D 64, kv8 and kv4, length 144, and one kv4
    decode case at D 32 in each layout (the value-by-value copy path).
+   The dense registry's attention shapes: the four attention kernels at
+   kv16, kv8 and kv4 for (D, G, Hkv) = (128, 3, 8) phi4-mini, (128, 5, 8)
+   qwen2.5-14b, (160, 4, 8) stablelm-12b (the value-by-value copies at
+   D % 64 != 0) and (256, 8, 1) gemma-2b (MQA, the largest shared-memory
+   request), each against its plain version and the paged kernels bit for
+   bit against the linear ones.
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -137,14 +143,38 @@ failure raises (exit code != 0).
    quantize_pack) byte-equal to quantize_codes and dequantizing bit for
    bit to the fake-quant tree, served through dequant_matmul and held end
    to end against the plain versions.  Logs the perplexities side by side
-   and each method's seconds per block.
-11. summary.  Every kernel's ``launches`` is the count of the runs above
-   that drive the main path (the startup packing of phases 3 and 4,
-   phases 3-6, 9, the serving runs of phase 8 and phase 10's serving and
-   RTN packing for the seven serving-path kernels, phase 7 for the int8
-   pair), never of the comparisons of phases 2, 8, 9 and 10 or of phase
-   7's repack check (its quantize_pack calls are gated there, not
-   counted).
+   and each method's seconds per block.  (d) the float opt-125m tree served
+   through the float ``Model`` as phase 11 serves llama-7b's.
+11. float llama-7b at its published width and depth (32 layers, d 4096,
+   26.43 GB of float32 weights), seed 0 (the floats phase 3 packed), phase
+   3's requests through ``launch/serve.py --fp``: float32 linears
+   (``torch.matmul``, no TF32) and a float cache read by the kv16 attention
+   kernels, served over the linear cache, over pages of 64 (streams equal
+   the linear ones token for token), with chunks of 64 and over phase 5b's
+   10-page pool (must preempt).  A row of ``torch.matmul`` is not the same
+   bits at every row count (``launch/row_probe.py``, logged here), so the
+   chunked and preempted streams are held to the logits: teacher-forced on
+   each stream, the chunked prefill's logits within FLOAT_TOL of the whole
+   prompt's and every served token within FLOAT_TOL of the whole-prompt
+   path's greedy choice; teacher-forced kernel logits within FLOAT_TOL of
+   the plain versions'.  Logs tokens/s, the decode step median, the
+   weight bytes and the greedy agreement with phase 3's W4A4 streams
+   (random weights: reported, not gated).
+12. the dense registry at published widths: phi4-mini-3.8b, qwen2.5-14b,
+   stablelm-12b and gemma-2b, each W4A4 g128 kv8 from seeded random
+   weights packed layer by layer at startup (quantize_pack), served over
+   the linear cache and pages of 64 (streams equal) with the per-block
+   check; gemma-2b also float at full width and depth (linear == paged,
+   kernels vs plain); and llama-7b W3A16 g128 (depth cut to 8 layers),
+   whose matmuls run the plain dequant by design (no w3 kernel, as in the
+   reference), held end to end against the plain attention.
+13. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (the startup packing of phases 3, 4 and 12,
+   phases 3-6, 9, 11, 12, the serving runs of phase 8 and phase 10's
+   serving and RTN packing for the seven serving-path kernels, phase 7 for
+   the int8 pair), never of the comparisons of phases 2, 8, 9, 10, 11 and
+   12 or of phase 7's repack check (its quantize_pack calls are gated
+   there, not counted).  Every phase logs its wall time.
 
 Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels (with phase 7's
@@ -185,6 +215,9 @@ LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
 # opt-125m's linears (q/k/v/o, fc1, fc2), decode and a 512-token prefill
 OPT_LINEAR_SHAPES = tuple((m, k, n) for m in (4, 512)
                           for k, n in ((768, 768), (768, 3072), (3072, 768)))
+# (D, G, Hkv) of the dense registry's attention: phi4-mini, qwen2.5-14b,
+# stablelm-12b, gemma-2b; phase 2 runs each at kv16, kv8 and kv4
+REGISTRY_ATTN = ((128, 3, 8), (128, 5, 8), (160, 4, 8), (256, 8, 1))
 # Earlier times of the redesigned kernels as PERF.md records them (H100
 # 80GB HBM3, 700 W), logged beside this run's.
 _MAIN_PREFILL = "B=4 C=128 S=128 Hkv=32 G=1 D=128 kv{} offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]"
@@ -339,6 +372,9 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    # ---- 11. the float llama-7b beside phase 3's W4A4 tree ----------------
+    phases.append(float_llama_phase(torch, streams))
+
     # ---- 8. calibrate llama-7b-width blocks and serve what they pack -------
     ppl = {}
     phases.append(calibrate_phase(torch, ppl))
@@ -346,7 +382,10 @@ def main() -> None:
     # ---- 10. opt-125m: AffineQuant, serving, the RTN / AWQ / GPTQ baselines -
     phases.append(opt_phase(torch, ppl))
 
-    # ---- 11. summary -------------------------------------------------------
+    # ---- 12. the dense registry at published widths, and W3A16 -----------
+    phases.append(registry_phase(torch))
+
+    # ---- 13. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -555,7 +594,9 @@ def check_kernels(torch, timer, results) -> None:
             (32, 1, 8, (2048,) * 4, 2048, d),
             (12, 1, 8, (144, 144, 144, 144), 512, 64),
             (12, 1, 4, (144, 144, 144, 144), 512, 64),
-            (8, 1, 4, (144, 144, 144, 144), 512, 32)):
+            (8, 1, 4, (144, 144, 144, 144), 512, 32)) + tuple(
+            (hkv, gq, kv_bits, (144,) * 4, 512, hd)
+            for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
         kv = cache(hkv, kv_bits, s, hd)
         q = randn(b, hkv, gq, hd)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -606,7 +647,9 @@ def check_kernels(torch, timer, results) -> None:
             (32, 1, 4, (0, 0, 0, 0), (128, 128, 128, 128), 128, d),
             (8, 4, 8, (0, 40, 384, 0), (128, 100, 128, 0), 512, d),
             (12, 1, 8, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64),
-            (12, 1, 4, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64)):
+            (12, 1, 4, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64)
+    ) + tuple((hkv, gq, kv_bits, (16,) * 4, (128,) * 4, 144, hd)
+              for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
         kv = cache(hkv, kv_bits, hd=hd)
         kv = tuple(None if t is None else t[:, :sc].contiguous() for t in kv)
         q = randn(b, hkv, c, gq, hd)
@@ -732,7 +775,9 @@ def check_paged_kernels(torch, timer, results) -> None:
             (32, 1, 8, 64, (2048,) * 4, 2048, d),
             (12, 1, 8, 64, (144, 144, 144, 144), 512, 64),
             (12, 1, 4, 64, (144, 144, 144, 144), 512, 64),
-            (8, 1, 4, 64, (144, 144, 144, 144), 512, 32)):
+            (8, 1, 4, 64, (144, 144, 144, 144), 512, 32)) + tuple(
+            (hkv, gq, kv_bits, 64, (144,) * 4, 512, hd)
+            for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
         max_pages = max_len // ps
         pools, pt, lin = paged_case(torch, gen, lens, hkv, hd, ps, kv_bits,
                                     max_pages)
@@ -798,7 +843,9 @@ def check_paged_kernels(torch, timer, results) -> None:
             (32, 1, 8, 16, (0, 21, 384, 64), (128, 1, 128, 0), d),
             (32, 1, 4, 16, (0, 21, 384, 64), (128, 1, 128, 0), d),
             (12, 1, 8, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64),
-            (12, 1, 4, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64)):
+            (12, 1, 4, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64)
+    ) + tuple((hkv, gq, kv_bits, 64, (16,) * 4, (128,) * 4, hd)
+              for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
         max_pages = max_len // ps
         ends = [o + n for o, n in zip(offs, cls)]
         pools, pt, lin = paged_case(torch, gen, ends, hkv, hd, ps, kv_bits,
@@ -1290,7 +1337,7 @@ def _serve_paged_run(torch, tag, params, base=None, **flags):
     kv = out["engine"]._kv
     steps = out["step_seconds"]
     log(f"[{tag}] {out['cfg'].name} x{out['cfg'].num_layers} "
-        f"{out['qcfg'].tag()} paged "
+        f"{out['tag']} paged "
         f"(page {args.page_size}, {kv.allocator.num_pages} pages, prefill "
         f"chunk {args.prefill_chunk or 'whole prompt'}): {out['generated']} "
         f"tokens in {out['seconds']:.3f} s = {out['tokens_per_s']:.2f} tok/s; "
@@ -2107,6 +2154,7 @@ def opt_phase(torch, ppl: dict) -> dict:
     a = calibrate_run(torch, "opt-a", OPT_CALIB_ARGS, OPT_SERVE_ARGS,
                       CALIB_RUNS["a"], counts)
     params = a["params"]
+    streams_a = a["streams"]
     ppl["opt-125m"].update(fp=a["report"]["fp_ppl"],
                            **{"affine w4a4": a["report"]["quant_ppl"]})
     base = _with(OPT_SERVE_ARGS, **CALIB_RUNS["a"])
@@ -2140,6 +2188,11 @@ def opt_phase(torch, ppl: dict) -> dict:
     ppl["opt-125m"]["affine w4a16"] = b["report"]["quant_ppl"]
     del b
     log(f"[opt] (b) {time.perf_counter() - t0:.1f} s")
+    # (d) the float tree itself through the float Model
+    t0 = time.perf_counter()
+    _add(counts, serve_float(torch, "fp-opt", OPT_SERVE_ARGS, params,
+                             streams_a, pool_pages=OPT_POOL_PAGES))
+    log(f"[opt] (d) {time.perf_counter() - t0:.1f} s")
     # (c) the baselines, on opt-125m and on phase 8's llama-7b-width blocks
     t0 = time.perf_counter()
     baselines(torch, "opt-125m", OPT_CALIB_ARGS, OPT_SERVE_ARGS, counts,
@@ -2186,6 +2239,7 @@ def baselines(torch, arch, calib_argv, serve_argv, counts, ppl,
     from repro_torch.core.calibration import _get
     from repro_torch.core.quantizer import quantize_codes
     from repro_torch.launch import calibrate
+    from repro_torch.models.layers import GATED
     flags = dict(wbits=4, abits=16, group=128)
     row = ppl.setdefault(arch, {})
     for method in BASELINES:
@@ -2206,7 +2260,7 @@ def baselines(torch, arch, calib_argv, serve_argv, counts, ppl,
         if not all(map(math.isfinite, (rep["fp_ppl"], rep["quant_ppl"]))):
             raise RuntimeError(f"{tag}: a perplexity is not finite")
         lin = [k for k, _ in DENSE_LINEARS
-               if k != "mlp/w_gate" or out["cfg"].act == "swiglu"]
+               if k != "mlp/w_gate" or out["cfg"].act in GATED]
         moved = max(float((_get(out["fake"]["layers"], k)
                            - _get(params["layers"], k))
                           .abs().max()) for k in lin)
@@ -2272,6 +2326,281 @@ def _rtn_packed(torch, tag, out, lin, c, quantize_codes) -> None:
     log(f"[{tag}] packed tree: {len(lin)} x {cfg.num_layers} linears "
         f"through quantize_pack, byte-equal to quantize_codes, dequantized "
         f"bit for bit to the fake-quant tree")
+
+
+# ---------------------------------------------------------------------------
+# 11. the float model: llama-7b at its published width and depth (and the
+#     same runs for opt-125m in phase 10 and gemma-2b in phase 12)
+# ---------------------------------------------------------------------------
+
+# Float kernels vs plain versions, and the chunked / preempted streams'
+# logits contract: the float paths differ only by float32 summation order
+# (attention's, and ``torch.matmul``'s at other row counts), which 32
+# random layers amplify; on the CPU (2 layers) the same differences stay
+# below 1e-6 of the largest logit.
+FLOAT_TOL = 1e-4
+POOL_PAGES = 10           # phase 5b's pool: 4 x (128 + 32 + 1) need 12
+
+
+def _streams(out) -> list:
+    return [list(r.out_tokens) for r in out["requests"]]
+
+
+def _float_run(torch, tag, argv, params, counts, **flags):
+    """One float serving run through the CLI's entry point (``--fp``),
+    launch counters zeroed just before and added to ``counts`` just after;
+    every request must complete with max_new tokens."""
+    out, c = _counted_serve(_with(argv, fp=True, **flags), params)
+    steps = out["step_seconds"]
+    kv = out["engine"]._kv
+    pool = (f"{kv.allocator.num_pages} pages of {flags['page_size']}"
+            if flags.get("paged") else "linear")
+    log(f"[{tag}] {out['cfg'].name} x{out['cfg'].num_layers} fp, {pool}, "
+        f"prefill chunk {flags.get('prefill_chunk') or 'whole prompt'}: "
+        f"{out['generated']} tokens in {out['seconds']:.3f} s = "
+        f"{out['tokens_per_s']:.2f} tok/s; first step {steps[0]:.4f} s, "
+        f"decode step median {statistics.median(steps[1:]) * 1e3:.2f} ms "
+        f"over {len(steps) - 1} steps; preemptions {out['preemptions']}; "
+        f"weight bytes {out['weight_bytes']}, KV bytes {out['kv_bytes']}; "
+        f"launches {c}")
+    n_new = int(argv[argv.index("--max-new") + 1])
+    bad = [r.rid for r in out["requests"] if r.status.name != "COMPLETED"
+           or len(r.out_tokens) != n_new]
+    if bad:
+        raise RuntimeError(f"{tag}: requests {bad} did not complete with "
+                           f"{n_new} tokens")
+    # whole prompts prefill into a linear cache and splice into the pages;
+    # chunks prefill into the pages
+    names = (("flash_prefill_paged" if flags.get("prefill_chunk")
+              else "flash_prefill"),
+             "flash_decode_paged" if flags.get("paged") else "flash_decode")
+    require_launched(c, names, tag)
+    if c["w4a8_matmul"] or c["dequant_matmul"]:
+        raise RuntimeError(f"{tag}: a packed matmul ran on the float path")
+    if flags.get("paged"):
+        kv.verify()
+        if kv.allocator.num_free != kv.allocator.num_pages:
+            raise RuntimeError(f"{tag}: pages leaked")
+    _add(counts, c)
+    return out
+
+
+def float_contract(torch, tag, out, base: list, chunk: int = 64) -> None:
+    """The chunked / preempted float streams' contract: teacher-forced on
+    the stream, the prompt prefilled in chunks gives logits within
+    FLOAT_TOL of the whole prompt's at every served position, and every
+    served token is the whole-prompt path's greedy choice or ties it
+    within FLOAT_TOL; the greedy agreement with the linear streams is
+    logged beside it."""
+    import numpy as np
+    from repro_torch.launch.serve import agreement, near_greedy, teacher_forced
+    streams = _streams(out)
+    prompts = torch.from_numpy(np.stack(out["prompts"]))
+    gen = torch.tensor(streams, dtype=torch.int32)
+    n, max_len = gen.shape[1], 512
+    whole = teacher_forced(out["model"], out["params"], prompts, gen, n - 1,
+                           max_len)
+    chunked = teacher_forced(out["model"], out["params"], prompts, gen,
+                             n - 1, max_len, chunk=chunk)
+    rel = ((chunked - whole).abs().max() / whole.abs().max()).item()
+    near = near_greedy(whole, gen, FLOAT_TOL)
+    log(f"[{tag}] teacher-forced on its {gen.numel()} served tokens: "
+        f"chunked (chunks of {chunk}) vs whole-prompt logits max|dlogit| / "
+        f"max|logit| {rel:.3e} (tol {FLOAT_TOL:.0e}); served tokens within "
+        f"tol of the whole path's greedy choice {near:.4f} (gate 1.0); "
+        f"greedy agreement with the linear streams "
+        f"{agreement(base, streams):.4f} (reported)")
+    if not (torch.isfinite(whole).all() and rel <= FLOAT_TOL and near == 1.0):
+        raise RuntimeError(f"{tag}: the float stream breaks the logits "
+                           f"contract")
+
+
+def float_kernels_vs_plain(torch, tag, out, steps: int = 8) -> None:
+    """Teacher-forced logits (prefill + ``steps`` decode steps) through the
+    kv16 attention kernels against the plain versions, within FLOAT_TOL."""
+    import numpy as np
+    from repro_torch.launch.serve import teacher_forced
+    from repro_torch.models.model import Model
+    prompts = torch.from_numpy(np.stack(out["prompts"]))
+    gen = torch.tensor(_streams(out), dtype=torch.int32)
+    a, p = (teacher_forced(Model(out["cfg"], out["model"].device, mode),
+                           out["params"], prompts, gen, steps, 512)
+            for mode in ("auto", "plain"))
+    rel = ((a - p).abs().max() / p.abs().max()).item()
+    agree = (a.argmax(-1) == p.argmax(-1)).float().mean().item()
+    log(f"[{tag}] teacher-forced logits (prefill + {steps} decode steps), "
+        f"kernels vs plain: max|dlogit| / max|logit| {rel:.3e} (tol "
+        f"{FLOAT_TOL:.0e}); greedy agreement {agree:.4f}")
+    if not (torch.isfinite(a).all() and rel <= FLOAT_TOL):
+        raise RuntimeError(f"{tag}: float kernels and plain versions "
+                           f"disagree")
+
+
+def serve_float(torch, tag, argv, params, packed_streams=None,
+                pool_pages: int = POOL_PAGES, chunked: bool = True) -> dict:
+    """A float tree through the float Model: linear, pages of 64 (streams
+    equal the linear ones), and with ``chunked`` chunks of 64 and a
+    ``pool_pages`` pool of 64-token pages that must preempt (the logits
+    contract); kernels vs plain.  Logs the greedy agreement with
+    ``packed_streams``.  Returns the launch counts."""
+    from repro_torch.launch.serve import agreement
+    t0 = time.perf_counter()
+    counts = {name: 0 for name in KERNELS}
+    lin = _float_run(torch, tag, argv, params, counts)
+    base = _streams(lin)
+    if packed_streams is not None:
+        log(f"[{tag}] greedy agreement fp vs the W4A4 g128 kv8 tree made "
+            f"from the same floats: {agreement(base, packed_streams):.4f} "
+            f"(random weights: reported, not gated)")
+    float_kernels_vs_plain(torch, tag, lin)
+    params = lin["params"]
+    del lin
+    paged = _float_run(torch, f"{tag}-paged", argv, params, counts,
+                       paged=True, page_size=64)
+    if _streams(paged) != base:
+        raise RuntimeError(f"{tag}-paged: the paged float streams differ "
+                           f"from the linear ones")
+    log(f"[{tag}-paged] greedy streams equal the linear streams token for "
+        f"token")
+    del paged
+    if chunked:
+        out = _float_run(torch, f"{tag}-chunked", argv, params, counts,
+                         paged=True, page_size=64, prefill_chunk=64)
+        float_contract(torch, f"{tag}-chunked", out, base)
+        del out
+        out = _float_run(torch, f"{tag}-pool", argv, params, counts,
+                         paged=True, page_size=64, prefill_chunk=64,
+                         num_pages=pool_pages)
+        if out["preemptions"] < 1:
+            raise RuntimeError(f"{tag}-pool: the {pool_pages}-page pool "
+                               f"never preempted")
+        float_contract(torch, f"{tag}-pool", out, base)
+        del out
+    torch.cuda.empty_cache()
+    log(f"[{tag}] float serving wall time {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    return counts
+
+
+def float_llama_phase(torch, packed_streams) -> dict:
+    """Phase 11 (see the module docstring); returns its launch counts."""
+    from repro_torch.launch import row_probe, serve
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+        res = row_probe.probe(k, n, torch.device("cuda"))
+        log(f"[fp-llama] row probe K={k} N={n}, 512 rows vs pieces: " +
+            "; ".join(f"{p}: {c} rows differ (max {r:.3e})"
+                      for p, (c, r) in res.items()))
+    argv = _with(SERVE_ARGS, layers=LAYERS)
+    t0 = time.perf_counter()
+    params = serve.build_model(serve.build_parser().parse_args(
+        _with(argv, fp=True)))[2]
+    torch.cuda.synchronize()
+    log(f"[fp-llama] random init of the float llama-7b x{LAYERS} tree "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (26.43 GB "
+        f"of float32 weights; a decode step must read them: 7.89 ms at "
+        f"3.35 TB/s, W4A4's 1.24 ms); {card}")
+    counts = serve_float(torch, "fp-llama", argv, params, packed_streams)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[fp-llama] phase 11 wall time {time.perf_counter() - t_phase:.1f} "
+        f"s; {card}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 12. the dense registry at published widths, and W3A16
+# ---------------------------------------------------------------------------
+
+# depth served per arch (the published depth; cut only where time or
+# memory force it, and logged)
+REGISTRY = {"phi4-mini-3.8b": 32, "qwen2.5-14b": 48, "stablelm-12b": 40,
+            "gemma-2b": 18}
+W3_LAYERS = 8             # llama-7b depth cut: w3 runs the plain dequant
+FLOAT_ARCH = "gemma-2b"   # also served float at full width and depth
+
+
+def registry_phase(torch) -> dict:
+    """Phase 12 (see the module docstring); returns its launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    counts = {name: 0 for name in KERNELS}
+    for arch, layers in REGISTRY.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers != cfg.num_layers:
+            log(f"[{arch}] depth cut to {layers} of {cfg.num_layers} layers")
+        argv = _with(SERVE_ARGS, arch=arch, layers=layers)
+        with counted(counts):
+            params = serve.build_model(serve.build_parser().parse_args(
+                argv))[2]
+            torch.cuda.synchronize()
+        log(f"[{arch}] d {cfg.d_model}, {cfg.num_heads} heads / "
+            f"{cfg.num_kv_heads} KV heads of {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.act} {cfg.norm}, "
+            f"{'untied' if not cfg.tie_embeddings else 'tied'} head: init + "
+            f"RTN packing {time.perf_counter() - t0:.1f} s")
+        out, c = _counted_serve(argv, params)
+        steps = out["step_seconds"]
+        log(f"[{arch}] x{layers} w4a4 g128 kv8: {out['generated']} tokens in "
+            f"{out['seconds']:.3f} s = {out['tokens_per_s']:.2f} tok/s; "
+            f"decode step median {statistics.median(steps[1:]) * 1e3:.2f} ms; "
+            f"weight bytes {out['weight_bytes']}; launches {c}")
+        require_launched(c, ("w4a8_matmul", "flash_prefill", "flash_decode"),
+                         arch)
+        if any(len(s) != 32 for s in _streams(out)):
+            raise RuntimeError(f"{arch}: a request did not produce 32 tokens")
+        _add(counts, c)
+        paged, c = _serve_paged_run(torch, f"{arch}-paged", params,
+                                    base=argv, page_size=64)
+        if _streams(paged) != _streams(out):
+            raise RuntimeError(f"{arch}-paged: the paged streams differ from "
+                               f"the linear ones")
+        log(f"[{arch}-paged] greedy streams equal the linear streams token "
+            f"for token")
+        _add(counts, c)
+        del paged
+        _gate_served(torch, arch, out)
+        del out, params
+        torch.cuda.empty_cache()
+        log(f"[{arch}] wall time {time.perf_counter() - t0:.1f} s")
+    # gemma-2b float at full width and depth
+    argv = _with(SERVE_ARGS, arch=FLOAT_ARCH, layers=0)
+    params = serve.build_model(serve.build_parser().parse_args(
+        _with(argv, fp=True)))[2]
+    _add(counts, serve_float(torch, "fp-gemma", argv, params, chunked=False))
+    del params
+    torch.cuda.empty_cache()
+    # W3A16 g128: the plain dequant by design
+    t0 = time.perf_counter()
+    argv = _with(SERVE_ARGS, wbits=3, abits=16, kvbits=16, layers=W3_LAYERS)
+    out, c = _counted_serve(argv, None)
+    log(f"[w3] llama-7b x{W3_LAYERS} (depth cut) w3a16 g128 kv16: "
+        f"{out['generated']} tokens in {out['seconds']:.3f} s = "
+        f"{out['tokens_per_s']:.2f} tok/s; decode step median "
+        f"{statistics.median(out['step_seconds'][1:]) * 1e3:.2f} ms; "
+        f"weight bytes "
+        f"{out['weight_bytes']}; launches {c} (the matmuls plain by design: "
+        f"no w3 kernel, as in the reference)")
+    if c["dequant_matmul"] or c["w4a8_matmul"] or c["quantize_pack"]:
+        raise RuntimeError("w3: a packed-matmul or packing kernel ran on "
+                           "the w3 path")
+    require_launched(c, ("flash_prefill", "flash_decode"), "w3")
+    if any(len(s) != 32 for s in _streams(out)):
+        raise RuntimeError("w3: a request did not produce 32 tokens")
+    _add(counts, c)
+    import numpy as np
+    a16_gate(torch, "w3", out, torch.from_numpy(np.stack(out["prompts"])),
+             torch.tensor(_streams(out), dtype=torch.int32))
+    del out
+    torch.cuda.empty_cache()
+    log(f"[registry] phase 12 wall time {time.perf_counter() - t_phase:.1f} "
+        f"s; launches {counts}; {card}")
+    return counts
 
 
 if __name__ == "__main__":

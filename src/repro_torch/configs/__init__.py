@@ -1,15 +1,18 @@
 """Architecture registry of the port: ``get_config(name)``."""
 from __future__ import annotations
 
-from repro_torch.configs.archs import PAPER_ARCHS
+from repro_torch.configs.archs import DENSE_ARCHS, PAPER_ARCHS
 from repro_torch.configs.base import ModelConfig
+
+ARCHS: dict[str, ModelConfig] = {**PAPER_ARCHS, **DENSE_ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name not in PAPER_ARCHS:
+    if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; the port serves "
-                       f"{sorted(PAPER_ARCHS)}")
-    return PAPER_ARCHS[name]
+                       f"{sorted(ARCHS)}")
+    return ARCHS[name]
 
 
-__all__ = ["ModelConfig", "PAPER_ARCHS", "get_config"]
+__all__ = ["ARCHS", "DENSE_ARCHS", "ModelConfig", "PAPER_ARCHS",
+           "get_config"]

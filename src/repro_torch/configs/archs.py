@@ -1,4 +1,5 @@
-"""The paper's evaluation families: OPT and LLaMA.
+"""The paper's evaluation families, OPT and LLaMA (``PAPER_ARCHS``), and
+the reference registry's other dense archs (``DENSE_ARCHS``).
 
 Same shapes as the reference registry: OPT = ReLU MLP + LayerNorm + qkv
 biases, its learned positions approximated by sinusoidal ones
@@ -6,6 +7,13 @@ biases, its learned positions approximated by sinusoidal ones
 RoPE (Touvron et al., 2023); both tied, float32.  ``opt-125m`` and
 ``llama-7b`` are the published widths; the ``-mini`` / ``-micro`` entries
 are the CPU-sized miniatures the tests use.
+
+``DENSE_ARCHS`` holds the reference registry's four dense entries at their
+published shapes (the sources in brackets): GQA with G = 3, 5 and 4, MQA
+(G = 8), qkv biases with RoPE at theta 1e6, LayerNorm with RoPE, head_dim
+160 and 256, GeGLU, untied heads.  The reference keeps them in bfloat16;
+the port computes them in float32, as it does every arch (its caches and
+its kernels' float operands are float32).
 """
 from __future__ import annotations
 
@@ -34,4 +42,29 @@ PAPER_ARCHS: dict[str, ModelConfig] = {
     "llama-7b": _llama("llama-7b", 32, 4096, 32, 32, 11008),
     "llama-mini": _llama("llama-mini", 4, 256, 8, 8, 704, vocab=2048),
     "llama-micro": _llama("llama-micro", 2, 128, 4, 4, 384, vocab=512),
+}
+
+
+DENSE_ARCHS: dict[str, ModelConfig] = {
+    # [arXiv:2412.08905; hf] 32L d 3072 24H (GQA kv 8) d_ff 8192, untied
+    "phi4-mini-3.8b": ModelConfig(
+        name="phi4-mini-3.8b", num_layers=32, d_model=3072, num_heads=24,
+        num_kv_heads=8, head_dim=128, d_ff=8192, vocab_size=200064,
+        act="swiglu", norm="rmsnorm", rope_theta=10000.0),
+    # [hf:Qwen/Qwen2.5] 48L d 5120 40H (GQA kv 8) d_ff 13824, QKV bias
+    "qwen2.5-14b": ModelConfig(
+        name="qwen2.5-14b", num_layers=48, d_model=5120, num_heads=40,
+        num_kv_heads=8, head_dim=128, d_ff=13824, vocab_size=152064,
+        act="swiglu", norm="rmsnorm", qkv_bias=True, rope_theta=1000000.0),
+    # [hf:stabilityai/stablelm-2] 40L d 5120 32H (GQA kv 8) head_dim 160
+    "stablelm-12b": ModelConfig(
+        name="stablelm-12b", num_layers=40, d_model=5120, num_heads=32,
+        num_kv_heads=8, head_dim=160, d_ff=13824, vocab_size=100352,
+        act="swiglu", norm="layernorm", rope_theta=10000.0),
+    # [arXiv:2403.08295; hf] 18L d 2048 8H (MQA) head_dim 256, GeGLU, tied
+    "gemma-2b": ModelConfig(
+        name="gemma-2b", num_layers=18, d_model=2048, num_heads=8,
+        num_kv_heads=1, head_dim=256, d_ff=16384, vocab_size=256000,
+        act="geglu", norm="rmsnorm", rope_theta=10000.0,
+        tie_embeddings=True),
 }

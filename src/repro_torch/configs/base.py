@@ -1,4 +1,4 @@
-"""Model configuration: the fields the dense OPT and llama paths read."""
+"""Model configuration: the fields the dense paths read."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +15,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
     family: str = "dense"            # the port has the dense family only
-    act: str = "swiglu"              # swiglu | relu
+    act: str = "swiglu"              # swiglu | geglu | gelu | relu
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     qkv_bias: bool = False
     rope_theta: float = 10000.0      # 0: sinusoidal absolute positions

@@ -19,7 +19,7 @@ from repro_torch.core.affine import AffineSpec
 from repro_torch.models.layers import GATED
 
 _OTHER_FAMILIES = ("the MoE, mamba2 and griffin families' transform sites "
-                   "are not ported yet (ROADMAP queue 1 item 11)")
+                   "are not ported yet (ROADMAP queue 1 item 5)")
 
 
 def require_dense(cfg) -> None:

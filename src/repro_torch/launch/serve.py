@@ -1,4 +1,4 @@
-"""Serve a packed OPT or llama model from seeded random weights.
+"""Serve a packed (or float) dense model from seeded random weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \
         --wbits 4 --group 128 --abits 4 --kvbits 8 --requests 4 \
@@ -34,6 +34,14 @@ then prints the greedy agreement of the packed tree with the calibrated
 fake-quant simulation, teacher-forced on the served streams;
 ``--load-packed DIR`` serves a packed tree written earlier (by
 ``launch/calibrate.py`` or ``checkpoints.save``).
+
+The float model: ``--fp`` serves the float tree itself (the seeded init,
+which draws the floats ``random_packed_lm`` packs, or ``--ckpt``) through
+``Model``: float32 linears, a float cache, the same Engine.
+``--compare-fp`` serves that float tree first and then the packed tree made
+from it, and prints the reference's greedy-agreement lines: fp vs packed,
+and with ``--calibrate`` also the fake-quant tree served through ``Model``
+(fp vs quant, quant vs packed).  Both hold the whole float tree in memory.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.calibrate import load_float_params
 from repro_torch.models import transformer
 from repro_torch.models.init import init_block, init_lm, init_top, stack_layers
+from repro_torch.models.model import Model
 from repro_torch.serve.engine import Engine, QueueFull, ServeConfig
 from repro_torch.serve.kv_cache import pages_for
 from repro_torch.serve.quantized import (QuantizedModel, quantize_layers,
@@ -87,22 +96,32 @@ def calibrated_lm(float_params: dict, cfg, qcfg: QuantConfig, args
     return packed, fake
 
 
-def load_params(args, cfg, qcfg: QuantConfig, device
+def float_lm(args, cfg, qcfg: QuantConfig, device) -> dict:
+    """The float tree: ``--ckpt``, or the seeded init (the floats that
+    ``random_packed_lm`` packs, drawn in the same order)."""
+    if args.ckpt:
+        return load_float_params(args.ckpt, cfg, qcfg, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return init_lm(cfg, gen, device)
+
+
+def load_params(args, cfg, qcfg: QuantConfig, device,
+                float_params: Optional[dict] = None
                 ) -> tuple[dict, Optional[dict]]:
-    """(packed tree, fake-quant tree or None) as the flags ask."""
-    if args.load_packed and args.ckpt:
-        raise ValueError("--load-packed serves a packed tree; --ckpt names "
-                         "a float one: pass one of them")
+    """(served tree, fake-quant tree or None) as the flags ask: the float
+    tree with ``--fp``, else the packed one (from ``float_params`` when
+    given)."""
+    if args.load_packed and (args.ckpt or args.fp):
+        raise ValueError("--load-packed serves a packed tree; --ckpt and "
+                         "--fp name a float one: pass one of them")
     if args.load_packed:
         return checkpoints.load_tree(args.load_packed, cfg, qcfg,
                                      device=device), None
-    if not (args.ckpt or args.calibrate):
+    if args.fp:
+        return float_params or float_lm(args, cfg, qcfg, device), None
+    if not (args.ckpt or args.calibrate or float_params):
         return random_packed_lm(cfg, qcfg, args.seed, device), None
-    if args.ckpt:
-        float_params = load_float_params(args.ckpt, cfg, qcfg, device)
-    else:
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        float_params = init_lm(cfg, gen, device)
+    float_params = float_params or float_lm(args, cfg, qcfg, device)
     if args.calibrate:
         return calibrated_lm(float_params, cfg, qcfg, args)
     return quantize_lm_packed(float_params, cfg, qcfg), None
@@ -154,28 +173,47 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default=None, metavar="DIR",
                     help="float checkpoint: packed on the RTN grid, or "
                          "calibrated with --calibrate")
+    fp = ap.add_mutually_exclusive_group()
+    fp.add_argument("--fp", action="store_true",
+                    help="serve the float tree (seeded, or --ckpt) through "
+                         "the float Model; the bit flags are ignored")
+    fp.add_argument("--compare-fp", action="store_true",
+                    help="serve the float tree, then the packed tree made "
+                         "from it, and print their greedy agreement")
     return ap
 
 
-def build_model(args: argparse.Namespace, params: Optional[dict] = None):
-    """(cfg, qcfg, packed params, QuantizedModel, fake-quant tree or None)
-    from the parsed flags; ``params`` reuses a packed tree built for the
-    same arch, depth, weight bits, group and seed (the KV format and
-    activation bits may differ)."""
-    device = resolve_device(args.device)
-    # float32 matmuls left to PyTorch (vocab head, activation transforms)
-    # stay full float32: no TF32
+def arch_config(args: argparse.Namespace):
+    """The arch's config, depth cut to ``--layers``.  Also turns TF32 off:
+    the float32 products left to PyTorch (every float linear, the vocab
+    head, activation transforms) stay full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    qcfg = QuantConfig(w_bits=args.wbits, a_bits=args.abits,
+    return cfg
+
+
+def quant_config(args: argparse.Namespace) -> QuantConfig:
+    return QuantConfig(w_bits=args.wbits, a_bits=args.abits,
                        group_size=args.group, kv_bits=args.kvbits)
+
+
+def build_model(args: argparse.Namespace, params: Optional[dict] = None):
+    """(cfg, qcfg, params, model, fake-quant tree or None) from the parsed
+    flags: a ``QuantizedModel`` over a packed tree, or with ``--fp`` a
+    ``Model`` over the float tree; ``params`` reuses a tree built for the
+    same arch, depth and seed (packed: and weight bits and group; the KV
+    format and activation bits may differ)."""
+    device = resolve_device(args.device)
+    cfg, qcfg = arch_config(args), quant_config(args)
     fake = None
     if params is None:
         params, fake = load_params(args, cfg, qcfg, device)
-    return cfg, qcfg, params, QuantizedModel(cfg, qcfg, device=device), fake
+    model = (Model(cfg, device) if args.fp
+             else QuantizedModel(cfg, qcfg, device=device))
+    return cfg, qcfg, params, model, fake
 
 
 def serve_config(args: argparse.Namespace) -> ServeConfig:
@@ -222,6 +260,7 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     reqs = engine.run()          # nothing left: returns the requests
     generated = sum(len(r.out_tokens) for r in reqs)
     return {"cfg": cfg, "qcfg": qcfg, "model": model, "params": params,
+            "tag": "fp" if args.fp else qcfg.tag(),
             "fake": fake, "engine": engine, "requests": reqs,
             "prompts": prompts,
             "seconds": seconds, "generated": generated,
@@ -262,17 +301,41 @@ def agreement(a: list, b: list) -> float:
 
 
 @torch.no_grad()
-def teacher_forced(model: QuantizedModel, params: dict, prompts: torch.Tensor,
-                   gen: torch.Tensor, steps: int, max_len: int
-                   ) -> torch.Tensor:
-    """Logits (B, 1 + steps, vocab) of the packed tree: the prefill's last
-    position, then ``steps`` decode steps fed ``gen[:, i]``."""
-    lg, cache = model.prefill(params, {"tokens": prompts}, max_len=max_len)
+def teacher_forced(model, params: dict, prompts: torch.Tensor,
+                   gen: torch.Tensor, steps: int, max_len: int,
+                   chunk: int = 0) -> torch.Tensor:
+    """Logits (B, 1 + steps, vocab) of ``model`` (float or packed): the
+    prompt's last position, then ``steps`` decode steps fed ``gen[:, i]``.
+    The prompt is prefilled whole, or with ``chunk`` in chunks of that many
+    tokens, as chunked admission and a preempted resume prefill it."""
+    if chunk:
+        b, t = prompts.shape
+        cache = model.init_cache(b, max_len)
+        for c0 in range(0, t, chunk):
+            lg, cache = model.prefill_chunk(
+                params, {"tokens": prompts[:, c0:c0 + chunk]}, cache,
+                torch.full((b,), c0, dtype=torch.int32), last_only=True)
+    else:
+        lg, cache = model.prefill(params, {"tokens": prompts},
+                                  max_len=max_len)
     seq = [lg]
     for i in range(steps):
         lg, cache = model.decode_step(params, gen[:, i:i + 1], cache)
         seq.append(lg)
     return torch.cat(seq, 1)
+
+
+def near_greedy(logits: torch.Tensor, tokens: torch.Tensor,
+                tol: float) -> float:
+    """Share of served ``tokens`` (B, n) whose logit in ``logits`` (B, n,
+    vocab), the teacher-forced logits that predicted them, lies within
+    ``tol`` of the largest logit magnitude below the row's maximum: 1.0 when
+    every token is the greedy choice or ties it to within ``tol``."""
+    lg = logits.to(torch.float32)
+    idx = tokens.long().to(lg.device)[..., None]
+    picked = torch.gather(lg, -1, idx)[..., 0]
+    gap = lg.amax(-1) - picked
+    return (gap <= tol * lg.abs().max()).float().mean().item()
 
 
 @torch.no_grad()
@@ -291,11 +354,11 @@ def packed_and_fake_logits(model: QuantizedModel, params: dict, fake: dict,
     return packed, sim
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
-    out = serve(args)
+def report(args: argparse.Namespace, out: dict) -> dict:
+    """Print one serving run's lines (and serve the prefix waves when
+    ``--prefix-cache`` asks); returns ``out``."""
     print(f"[serve] {out['cfg'].name} x{out['cfg'].num_layers} layers "
-          f"{out['qcfg'].tag()} on {out['model'].device}: "
+          f"{out['tag']} on {out['model'].device}: "
           f"{out['generated']} tokens in {out['seconds']:.3f} s = "
           f"{out['tokens_per_s']:.1f} tok/s (prefill included)")
     steps = out["step_seconds"]
@@ -328,6 +391,51 @@ def main(argv=None) -> dict:
           f"{out['kv_bytes']}, preemptions {out['preemptions']}, statuses "
           f"{out['statuses']}")
     return out
+
+
+def compare_fp(args: argparse.Namespace) -> dict:
+    """``--compare-fp``: the float tree served through ``Model``, then the
+    packed tree made from it (RTN, or ``--calibrate``), and with
+    ``--calibrate`` the fake-quant tree through ``Model``; prints the
+    greedy agreement of each pair of runs, as the reference's serve CLI
+    does.  Returns the packed run with the others under "fp" and
+    "quant"."""
+    if args.load_packed:
+        raise ValueError("--compare-fp needs the float tree the packed one "
+                         "is made from: drop --load-packed")
+    device = resolve_device(args.device)
+    cfg = arch_config(args)
+    qcfg = quant_config(args)
+    float_params = float_lm(args, cfg, qcfg, device)
+    fp_args = argparse.Namespace(**{**vars(args), "fp": True,
+                                    "compare_fp": False})
+    fp = report(fp_args, serve(fp_args, float_params))
+    packed, fake = load_params(args, cfg, qcfg, device, float_params)
+    out = serve(args, packed)
+    out["fake"] = fake
+    report(args, out)
+    streams = lambda o: [r.out_tokens for r in o["requests"]]
+    print(f"[serve] greedy-token agreement fp vs packed-{out['tag']}: "
+          f"{agreement(streams(fp), streams(out)):.4f}")
+    if fake is not None:
+        quant = report(fp_args, serve(fp_args, fake))
+        print(f"[serve] greedy-token agreement fp vs quant: "
+              f"{agreement(streams(fp), streams(quant)):.4f}; quant vs "
+              f"packed-{out['tag']}: "
+              f"{agreement(streams(quant), streams(out)):.4f}")
+        out["quant"] = quant
+    print(f"[serve] weight bytes: fp {fp['weight_bytes']} -> packed "
+          f"{out['weight_bytes']} "
+          f"({fp['weight_bytes'] / out['weight_bytes']:.2f}x)")
+    out["fp"] = fp
+    return out
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    if args.compare_fp:
+        return compare_fp(args)
+    return report(args, serve(args))
 
 
 if __name__ == "__main__":

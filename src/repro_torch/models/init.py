@@ -92,9 +92,35 @@ def layer(tree, i):
     return tree[i]
 
 
+def _stack_into(blocks, n: int) -> dict:
+    """Stack ``n`` float layer trees drawn one at a time from the iterator
+    ``blocks`` into tensors allocated once, so only one layer's tree exists
+    beside the stack (a float llama-7b is 26 GB: stacking a list of its
+    layers would hold 53 GB at the peak)."""
+    first = next(blocks)
+    alloc = lambda t: (torch.empty((n, *t.shape), dtype=t.dtype,
+                                   device=t.device)
+                       if not isinstance(t, dict)
+                       else {k: alloc(v) for k, v in t.items()})
+    out = alloc(first)
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    put(out, first, 0)
+    for i in range(1, n):
+        put(out, next(blocks), i)
+    return out
+
+
 def init_lm(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Float parameter tree with stacked layers."""
     params = init_top(cfg, gen, device)
-    params["layers"] = stack_layers(
-        [init_block(cfg, gen, device) for _ in range(cfg.num_layers)])
+    params["layers"] = _stack_into(
+        (init_block(cfg, gen, device) for _ in range(cfg.num_layers)),
+        cfg.num_layers)
     return params

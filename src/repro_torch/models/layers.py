@@ -1,6 +1,6 @@
-"""RMSNorm and LayerNorm, rotary position embedding, the SwiGLU and ReLU
-MLPs and the token cross entropy, as the reference computes them (float32
-math, result in the input's dtype)."""
+"""RMSNorm and LayerNorm, rotary position embedding, the SwiGLU, GeGLU,
+GELU and ReLU MLPs and the token cross entropy, as the reference computes
+them (float32 math, result in the input's dtype)."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 NORMS = ("rmsnorm", "layernorm")
-GATED = ("swiglu",)          # MLPs with a gate weight beside the up weight
+GATED = ("swiglu", "geglu")  # MLPs with a gate weight beside the up weight
 
 
 def _mean64(x: torch.Tensor) -> torch.Tensor:
@@ -68,15 +68,21 @@ def mlp_hidden(lin: Callable[[str, str], torch.Tensor], act: str
                ) -> torch.Tensor:
     """The MLP's hidden activation from ``lin(weight key, bias key)``, the
     linear product of the MLP input with one of its weights: a gate and an
-    up product for SwiGLU, the up product alone for ReLU (OPT).  Every
-    forward of the port (float, calibration, baselines, packed) goes
-    through it, so they name the same linears."""
+    up product for the gated MLPs (SwiGLU, GeGLU), the up product alone
+    for GELU and ReLU (OPT).  Every forward of the port (float,
+    calibration, baselines, packed) goes through it, so they name the same
+    linears.  GELU is the tanh approximation, as the reference's
+    ``jax.nn.gelu(approximate=True)``."""
     if act == "swiglu":
         return F.silu(lin("w_gate", "b_gate")) * lin("w_up", "b_up")
+    if act == "geglu":
+        return F.gelu(lin("w_gate", "b_gate"), approximate="tanh") \
+            * lin("w_up", "b_up")
+    if act == "gelu":
+        return F.gelu(lin("w_up", "b_up"), approximate="tanh")
     if act == "relu":
         return F.relu(lin("w_up", "b_up"))
-    raise ValueError(f"act={act!r}: the port has swiglu and relu, the "
-                     f"MLPs of the paper's two families")
+    raise ValueError(f"act={act!r}: use swiglu, geglu, gelu or relu")
 
 
 def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:

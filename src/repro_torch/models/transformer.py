@@ -1,19 +1,27 @@
-"""The float dense trunk (OPT and llama): full-sequence block, forward and
-LM loss, and the sinusoidal positions of the no-RoPE (OPT) family.
+"""The dense trunk: full-sequence block, forward and LM
+loss, the sinusoidal positions of the no-RoPE (OPT) family, and the
+serving half: the decode cache, prefill chunks and decode steps over the
+linear or the paged cache (:class:`ServingTrunk`).
 
 Layer parameters are stacked with a leading ``L`` axis (as
 :func:`repro_torch.models.init.init_lm` builds them); biases are honoured
 by presence (``bq``/``bk``/``bv``, a norm's ``bias``, ``b_gate``/``b_up``),
-since merging a calibrated shifted transform introduces them.  No cache,
-no prefix embeddings: serving goes through ``serve/quantized.py``.
+since merging a calibrated shifted transform introduces them.  No prefix
+embeddings, no sliding window: the dense archs have neither.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.quantize_pack import KV_BLOCK
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models.init import layer
+from repro_torch.serve import kv_cache
+from repro_torch.serve.kv_cache import PagedKVCache, chunk_write_index
 
 
 def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -93,3 +101,294 @@ def lm_loss(params: dict, cfg, batch: dict) -> torch.Tensor:
     logits = forward(params, cfg, tokens)
     return layers.cross_entropy(logits[:, :-1], tokens[:, 1:],
                                 batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# serving: the decode cache, prefill chunks and decode steps
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, *, kv_bits: int = 16,
+               device="cpu") -> dict:
+    """Linear decode cache: ``k``/``v`` (L, B, S, Hkv, D) in ``cfg.dtype``
+    and ``len`` (B,) int32.  kv8 stores int8 codes at that shape with
+    float32 ``k_scale``/``v_scale`` (L, B, S, Hkv); kv4 packed int4 nibbles
+    (L, B, S, Hkv, D // 2) with bf16 block-32 scales (L, B, S, Hkv,
+    D // 32).  Only the trailing dims differ, so the cache helpers that
+    touch the leading (L, B, S) dims serve every format."""
+    d = cfg.resolved_head_dim
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, d)
+    if kv_bits >= 16:
+        dt = getattr(torch, cfg.dtype)
+        cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
+    else:
+        sshape, sdt = shape[:-1], torch.float32
+        if kv_bits == 4:
+            shape = shape[:-1] + (d // 2,)
+            sshape, sdt = shape[:-1] + (d // KV_BLOCK,), torch.bfloat16
+        cache = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "k_scale": torch.zeros(sshape, dtype=sdt, device=device),
+                 "v_scale": torch.zeros(sshape, dtype=sdt, device=device)}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def act_transform(t: Optional[dict], h: torch.Tensor) -> torch.Tensor:
+    """A full-matrix transform site's activation factor: h_t = (h - shift)
+    @ a_inv (``t`` None: h)."""
+    if t is None:
+        return h
+    if "shift" in t:
+        h = h - t["shift"].to(h.dtype)
+    return h @ t["a_inv"].to(h.dtype)
+
+
+class ServingTrunk:
+    """The serving half of the dense trunk, shared by the float
+    :class:`~repro_torch.models.model.Model` and the packed
+    :class:`~repro_torch.serve.quantized.QuantizedModel`:
+    ``init_cache`` / ``init_paged_cache`` / ``prefill`` / ``prefill_chunk``
+    / ``decode_step``, the reference's ``apply_block_prefill_chunk``,
+    ``apply_block_decode`` and ``apply_block_decode_paged`` as the
+    ``_block_*`` methods.
+
+    A subclass is a dataclass with ``cfg``, ``device``, ``mode`` and
+    ``block_kv`` and gives ``kv_bits``, ``_mm(x, w)`` (the product of the
+    activations with one weight of its tree) and, below kv16,
+    ``_kv_values`` (quantize-on-write).  Attention reads the cache as
+    stored through ``ops.flash_prefill`` / ``ops.flash_decode``: the
+    kernels on CUDA tensors at ``mode="auto"``, their plain versions on
+    the CPU or at ``mode="plain"``.  ``block_kv`` sets the plain versions'
+    tile over the linear cache (the paged ones take one page per tile), as
+    the reference's ``flash_block_kv`` does.
+
+    The cache is updated in place: ``prefill_chunk`` and ``decode_step``
+    write into the cache they are given and return it.  A write past
+    ``max_len`` (or into an unallocated page) is dropped (slot ``max_len -
+    1`` keeps its token) and ``len`` saturates at capacity."""
+
+    supports_padded_prefill = True     # causal dense trunk: end padding
+    supports_chunked_prefill = True    # is exact, chunks read the cache
+
+    @property
+    def kv_quantized(self) -> bool:
+        return self.kv_bits < 16
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_cache(self.cfg, batch, max_len, kv_bits=self.kv_bits,
+                          device=self.device)
+
+    def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                         max_pages_per_seq: int) -> PagedKVCache:
+        """Page pools in the linear cache's per-token layout."""
+        cfg = self.cfg
+        return kv_cache.make_paged_cache(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, batch=batch,
+            num_pages=num_pages, page_size=page_size,
+            max_pages_per_seq=max_pages_per_seq,
+            dtype=getattr(torch, cfg.dtype),
+            kv_bits=min(self.kv_bits, 16), device=self.device)
+
+    def _kv_entries(self, cache, i) -> tuple:
+        """Layer ``i``'s cache entries (linear dict or paged pools)."""
+        keys = ("k", "v", "k_scale", "v_scale") if self.kv_quantized \
+            else ("k", "v")
+        if isinstance(cache, PagedKVCache):
+            return tuple(getattr(cache, k)[i] for k in keys)
+        return tuple(cache[k][i] for k in keys)
+
+    def _kv_values(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
+        """What enters the cache, in ``_kv_entries`` order: the values at
+        kv16."""
+        return k, v
+
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; a no-RoPE model adds the sinusoidal
+        embedding of ``pos`` (tokens' shape)."""
+        x = params["embed"][tokens.long()]
+        if not self.cfg.rope_theta:
+            x = x + sinusoidal_at(pos, self.cfg.d_model).to(x.dtype)
+        return x
+
+    def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        x = layers.apply_norm(params["ln_f"], x, self.cfg.norm)
+        head = params.get("head")
+        return x @ (head if head is not None else params["embed"].T)
+
+    def _ints(self, x, fill: int, n: int) -> torch.Tensor:
+        if x is None:
+            return torch.full((n,), fill, dtype=torch.int32,
+                              device=self.device)
+        return torch.as_tensor(x, dtype=torch.int32).to(self.device)
+
+    # ---- prefill -------------------------------------------------------
+    def prefill(self, params: dict, batch: dict, max_len: int):
+        """Whole-prompt prefill: one chunk at offset 0 into a fresh cache of
+        ``max(max_len, T)`` positions.  ``batch["lengths"]`` (B,) marks the
+        valid length of end-padded prompts.  Returns (logits (B, 1, vocab)
+        at each last valid token, cache)."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        bsz, t = tokens.shape
+        lengths = self._ints(batch.get("lengths"), t, bsz)
+        cache = self.init_cache(bsz, max(max_len, t))
+        x = self._forward_chunk(params, tokens, lengths, cache,
+                                torch.zeros_like(lengths))
+        x = x[torch.arange(bsz, device=self.device), lengths.long() - 1]
+        return self._head(params, x[:, None]), cache
+
+    def prefill_chunk(self, params: dict, batch: dict, cache, offset,
+                      *, last_only: bool = False):
+        """One C-token chunk written into (and attending) ``cache`` (linear
+        or paged) at ``offset`` (B,).  ``batch["chunk_len"]`` (B,) counts
+        valid rows (0 for idle rows).  Returns (logits (B, C, vocab) — or
+        (B, 1, vocab) at the last valid row when ``last_only`` — , cache)
+        with ``len`` (``lens`` when paged) advanced to ``offset +
+        chunk_len`` (saturating)."""
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        bsz, c = tokens.shape
+        chunk_len = self._ints(batch.get("chunk_len"), c, bsz)
+        offset = self._ints(offset, 0, bsz)
+        x = self._forward_chunk(params, tokens, chunk_len, cache, offset)
+        if last_only:
+            rows = torch.clamp_min(chunk_len.long() - 1, 0)
+            x = x[torch.arange(bsz, device=self.device), rows][:, None]
+        return self._head(params, x), cache
+
+    def _forward_chunk(self, params, tokens, chunk_len, cache, offset):
+        """Embed -> blocks (cache write + as-stored attention); returns the
+        pre-norm hidden states (B, C, d) and updates ``cache`` in place."""
+        bsz, c = tokens.shape
+        pos = offset[:, None] + torch.arange(c, device=self.device)[None, :]
+        x = self._embed(params, tokens, pos)
+        page_table = None
+        if isinstance(cache, PagedKVCache):
+            page_table, cap = cache.page_table, cache.capacity
+            rows = cache.num_pages * cache.page_size
+            write = kv_cache.paged_chunk_write_index(kv_cache.chunk_write_dest(
+                page_table, offset, chunk_len, c, cache.page_size,
+                cache.num_pages), rows)
+        else:
+            cap = cache["k"].shape[2]
+            write = chunk_write_index(offset, chunk_len, c, cap)
+        for i in range(self.cfg.num_layers):
+            x = self._block_prefill_chunk(
+                layer(params["layers"], i), x, self._kv_entries(cache, i),
+                pos, offset, chunk_len, write, page_table)
+        lens = torch.clamp_max(offset + chunk_len, cap).to(torch.int32)
+        if page_table is None:
+            cache["len"] = lens
+        else:
+            cache.lens = lens
+        return x
+
+    def _qkv(self, p, x, pos):
+        """norm -> activation transform -> q/k/v (+ biases) -> RoPE (RoPE
+        models)."""
+        cfg = self.cfg
+        b, t = x.shape[0], x.shape[1]
+        h = layers.apply_norm(p["ln_attn"], x, cfg.norm)
+        h = act_transform(p.get("attn_t"), h)
+        q, k, v = (self._mm(h, p[w]) for w in ("wq", "wk", "wv"))
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        hd = cfg.resolved_head_dim
+        q = q.reshape(b, t, cfg.num_heads, hd)
+        k = k.reshape(b, t, cfg.num_kv_heads, hd)
+        if cfg.rope_theta > 0:
+            q = layers.apply_rope(q, pos, cfg.rope_theta)
+            k = layers.apply_rope(k, pos, cfg.rope_theta)
+        return q, k, v.reshape(b, t, cfg.num_kv_heads, hd)
+
+    def _block_prefill_chunk(self, p, x, kv, pos, offset, chunk_len, write,
+                             page_table=None):
+        b, c = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(p, x, pos)
+        b_idx, c_idx, dest = write
+        for ct, val in zip(kv, self._kv_values(k, v)):
+            if page_table is None:
+                ct[b_idx, dest] = val[b_idx, c_idx].to(ct.dtype)
+            else:
+                kv_cache.paged_chunk_write(ct, val, write)
+        out = ops.flash_prefill(q, kv, offset, chunk_len,
+                                block_kv=self.block_kv,
+                                page_table=page_table, mode=self.mode)
+        x = x + self._mm(out.reshape(b, c, -1), p["wo"])
+        return x + self._mlp(p, x)
+
+    # ---- decode --------------------------------------------------------
+    def decode_step(self, params: dict, token, cache):
+        """token (B, 1) -> (logits (B, 1, vocab), cache), writing each
+        row's K/V at position ``len`` (dropped when the row is full, or its
+        page unallocated) and advancing ``len`` (saturating at capacity)."""
+        token = torch.as_tensor(token).to(self.device)
+        paged = isinstance(cache, PagedKVCache)
+        cur_len = cache.lens if paged else cache["len"]
+        x = self._embed(params, token, cur_len[:, None])
+        if paged:
+            return self._decode_step_paged(params, x, cache)
+        s = cache["k"].shape[2]
+        for i in range(self.cfg.num_layers):
+            x = self._block_decode(layer(params["layers"], i), x,
+                                   self._kv_entries(cache, i), cur_len)
+        logits = self._head(params, x)
+        cache["len"] = torch.clamp_max(cur_len + 1, s).to(torch.int32)
+        return logits, cache
+
+    def _block_decode(self, p, x, kv, cur_len):
+        b = x.shape[0]
+        s = kv[0].shape[1]
+        q, k, v = self._qkv(p, x, cur_len[:, None])
+        # a full row's write is dropped: write the old value back at the
+        # clamped index (one index per row, so no duplicate scatter)
+        idx = torch.clamp_max(cur_len, s - 1).long()
+        rows = torch.arange(b, device=self.device)
+        keep = (cur_len >= s)
+        for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
+            old = ct[rows, idx]
+            mask = keep.reshape(-1, *([1] * (old.ndim - 1)))
+            ct[rows, idx] = torch.where(mask, old, val.to(ct.dtype))
+        out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, s),
+                               block_kv=self.block_kv, mode=self.mode)
+        x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
+        return x + self._mlp(p, x)
+
+    def _decode_step_paged(self, params: dict, x, cache: PagedKVCache):
+        """The decode step over page pools: the token's K/V land in the
+        sequence's current page through the page table, attention walks only
+        the allocated pages.  Same math as the linear step."""
+        cur_len, cap = cache.lens, cache.capacity
+        rows = cache.num_pages * cache.page_size
+        write = kv_cache.token_write_index(kv_cache.token_write_dest(
+            cache.page_table, cur_len, cache.page_size, cache.num_pages), rows)
+        for i in range(self.cfg.num_layers):
+            x = self._block_decode_paged(layer(params["layers"], i), x,
+                                         self._kv_entries(cache, i), cur_len,
+                                         cache.page_table, write, cap)
+        logits = self._head(params, x)
+        cache.lens = torch.clamp_max(cur_len + 1, cap).to(torch.int32)
+        return logits, cache
+
+    def _block_decode_paged(self, p, x, kv, cur_len, page_table, write, cap):
+        b = x.shape[0]
+        q, k, v = self._qkv(p, x, cur_len[:, None])
+        for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
+            kv_cache.paged_token_write(ct, val, write)
+        out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, cap),
+                               page_table=page_table, mode=self.mode)
+        x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
+        return x + self._mlp(p, x)
+
+    # ---- mlp -----------------------------------------------------------
+    def _mlp(self, p, x):
+        h = layers.apply_norm(p["ln_mlp"], x, self.cfg.norm)
+        h = act_transform(p.get("mlp_t"), h)
+        mp = p["mlp"]
+
+        def lin(wn, bn):
+            y = self._mm(h, mp[wn])
+            return y + mp[bn] if bn in mp else y
+
+        return self._mm(layers.mlp_hidden(lin, self.cfg.act), mp["w_down"])

@@ -1,5 +1,11 @@
 """Continuous-batching serving engine over the linear or the paged cache.
 
+It serves the float :class:`~repro_torch.models.model.Model` and the packed
+:class:`~repro_torch.serve.quantized.QuantizedModel` alike: both expose
+``device``, ``init_cache`` / ``init_paged_cache`` / ``prefill`` /
+``prefill_chunk`` / ``decode_step`` over the same cache layouts, so the
+engine never asks which it holds.
+
 The engine owns a slot table of ``max_batch`` sequences sharing one cache
 and a FIFO queue of pending requests.  Each ``step``
 

@@ -341,10 +341,10 @@ def test_other_families_and_baselines_refuse():
     (which are ported: only a method they do not have refuses)."""
     from repro_torch.core.baselines import quantize_model_baseline
     cfg = dataclasses.replace(get_config("llama-micro"), family="moe")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         sites.block_sites(cfg, True)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         quantize_model_baseline({}, cfg, QuantConfig(), toks, "gptq")
     with pytest.raises(ValueError, match="smoothquant"):
         quantize_model_baseline({}, get_config("llama-micro"), QuantConfig(),

@@ -845,3 +845,66 @@ def test_quantize_layers_through_the_kernel(dev, arch):
             for f in ("packed", "scale", "zp"):
                 assert torch.equal(getattr(qt, f), getattr(want, f)), f
         assert torch.equal(got["ln_attn"]["scale"], lp["ln_attn"]["scale"])
+
+
+# ---- the dense registry's attention shapes; the float model -----------------
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+@pytest.mark.parametrize("d,g,hkv", [(128, 3, 2), (128, 5, 2), (160, 4, 2),
+                                     (256, 8, 1)])
+def test_attention_kernels_at_dense_arch_shapes(dev, d, g, hkv, kv_bits):
+    """phi4-mini (G 3), qwen2.5 (G 5), stablelm (D 160: the value-by-value
+    copies at D % 64 != 0) and gemma (MQA G 8, D 256: the largest shared
+    memory request): decode and prefill against their plain versions, and
+    the paged kernels bit for bit against the linear ones."""
+    rng = np.random.default_rng(d + g + kv_bits)
+    ps, lens = 16, [0, 21, 37, 64]
+    pools, pt, lin = _paged_case(rng, lens, hkv, d, ps, kv_bits, 4, dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_decode(q, lin[0], lin[1], cur, *lin[2:])
+    want = flash_decode_plain(q, lin[0], lin[1], cur, *lin[2:], block_kv=32)
+    assert _err(got, want) < 1e-5
+    assert torch.equal(flash_decode_paged(q, pools[0], pools[1], pt, cur,
+                                          *pools[2:]), got)
+    offs, cls = [0, 1, 30, 40], [0, 20, 7, 20]
+    c = 20
+    qc = torch.from_numpy(rng.standard_normal((4, hkv, c, g, d)).astype(
+        np.float32)).to(dev)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cls, dtype=torch.int32, device=dev)
+    got = flash_prefill(qc, lin[0], lin[1], off, cl, *lin[2:])
+    want = flash_prefill_plain(qc, lin[0], lin[1], off, cl, *lin[2:],
+                               block_kv=32)
+    assert _err(got, want) < 1e-5
+    assert torch.equal(flash_prefill_paged(qc, pools[0], pools[1], pt, off,
+                                           cl, *pools[2:]), got)
+
+
+@pytest.mark.parametrize("arch", ["llama-micro", "opt-micro"])
+def test_float_model_kernels_match_plain(dev, arch):
+    """The float Model on the card: teacher-forced prefill + 4 decode steps
+    through the kv16 kernels against the plain versions (float linears are
+    ``torch.matmul`` in both), within 1e-5; linear and paged decode give
+    the same greedy stream through the Engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import teacher_forced
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = get_config(arch)
+    params = Model(cfg, dev).init(0)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 28)).astype(np.int32))
+    out = {mode: teacher_forced(Model(cfg, dev, mode), params, toks[:, :24],
+                                toks[:, 24:], 4, 64)
+           for mode in ("auto", "plain")}
+    assert _err(out["auto"], out["plain"]) < 1e-5
+    streams = []
+    for paged in (False, True):
+        eng = Engine(Model(cfg, dev), params, ServeConfig(
+            max_batch=2, max_len=64, max_new=8, paged=paged, page_size=16))
+        reqs = [eng.submit(t.numpy()) for t in toks[:, :24]]
+        eng.run()
+        streams.append([r.out_tokens for r in reqs])
+    assert streams[0] == streams[1]

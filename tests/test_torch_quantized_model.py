@@ -176,11 +176,10 @@ def test_kv_quantize_conserves_nan():
 
 
 def test_unported_features_raise(setup):
+    """The other families are refused, naming their ROADMAP item (3-bit
+    weights serve: ``test_torch_dense_archs.py``)."""
     tcfg = setup[1]
-    for q in (QuantConfig(w_bits=3),):
-        with pytest.raises(NotImplementedError):
-            QuantizedModel(tcfg, q, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         QuantizedModel(dataclasses.replace(tcfg, family="moe"),
                        QuantConfig(), device="cpu")
 
@@ -216,11 +215,23 @@ def test_layerwise_random_packing_equals_packing_the_float_tree():
 
 
 def test_rtn_pack_refuses_a_symmetric_grid():
-    """RTN packing has one route, ``ops.quantize_pack``, whose grid is
-    asymmetric min/max; a symmetric grid is refused, not packed another
-    way."""
-    from repro_torch.serve.quantized import rtn_pack
-    w = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (64, 16)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="symmetric"):
-        rtn_pack(w, QuantConfig(w_bits=4, group_size=32, symmetric=True))
+    """``ops.quantize_pack`` has no symmetric grid, so ``rtn_pack`` no
+    longer refuses one: it packs it through ``quantize_codes``, and the
+    packed tree of ``quantize_lm_packed`` at ``symmetric=True`` is byte-equal
+    to the reference's ``quantize_lm_packed`` (stacked layers, w4 g32)."""
+    from repro_torch.serve.quantized import quantize_lm_packed
+    jcfg, tcfg = jget_config("llama-micro"), get_config("llama-micro")
+    params = build_model(jcfg).init(jax.random.PRNGKey(9))
+    jq = JQuantConfig(w_bits=4, group_size=32, lwc=False, symmetric=True)
+    tq = QuantConfig(w_bits=4, group_size=32, symmetric=True)
+    jp = jquantize_lm_packed(params, jcfg, jq)
+    tp = quantize_lm_packed(from_jax_params(_to_numpy(params)), tcfg, tq)
+    pairs = [(jp["layers"][k], tp["layers"][k]) for k in ("wq", "wk", "wv",
+                                                           "wo")]
+    pairs += [(jp["layers"]["mlp"][k], tp["layers"]["mlp"][k])
+              for k in ("w_gate", "w_up", "w_down")]
+    for j, t in pairs:
+        assert (t.bits, t.group_size) == (4, 32)
+        for f in ("packed", "scale", "zp"):
+            np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                          np.asarray(getattr(j, f)))
