@@ -168,13 +168,41 @@ failure raises (exit code != 0).
    kernels vs plain); and llama-7b W3A16 g128 (depth cut to 8 layers),
    whose matmuls run the plain dequant by design (no w3 kernel, as in the
    reference), held end to end against the plain attention.
-13. summary.  Every kernel's ``launches`` is the count of the runs above
+13. training (no kernel of its own: float32 ``torch.matmul`` and
+   autograd, as the reference trains through XLA): (a) opt-125m at
+   published width and depth through ``repro_torch.launch.train`` (200
+   steps of 16 x 128 tokens, checkpoints every 100, seed 0), with every
+   loss finite and the last 20 losses' mean 1 nat below the first; the
+   same command started as a subprocess, killed (SIGKILL) once step 100
+   is saved and launched again unchanged must restore step 100 and save a
+   step-200 checkpoint within 1e-5 of each leaf's largest magnitude of
+   the uninterrupted run's (deterministic algorithms stay off: the log
+   counts the bit-equal leaves); ``launch/calibrate --ckpt`` must read
+   the floats the run trained (the same held-out perplexity); (b)
+   llama-7b widths at depth 2 (cut from 32: 16 B a parameter of params,
+   gradients and two moments), 10 steps, then one step in two
+   microbatches and one under remat held to the plain step (loss and
+   every leaf within 1e-5); step time, tokens/s and peak memory beside
+   6 x params x tokens / 67 TFLOP/s for both; (c) llama-mini and
+   opt-mini trained 800 steps as ``benchmarks/common.py`` trains them
+   (held-out perplexity below half the vocab), then fp, RTN, AWQ, GPTQ,
+   OmniQuant-diag and AffineQuant at W4A16 and W2A16 per channel and
+   RTN, OmniQuant-diag and AffineQuant at W4A4 on each trained tree
+   (table1 / table3's budget: 8 epochs, 16 x 96 tokens, alpha 0.1): a
+   held-out perplexity table, AffineQuant's W2A16 output MSE below RTN's
+   and at most 1.02x OmniQuant-diag's, its W4A4 perplexity below 10x
+   fp's (``tests/test_system.py``'s gates); then trained opt-mini's
+   AffineQuant W4A4 g128 kv8 packed tree served through the Engine
+   (``w4a8_matmul``, ``flash_prefill``, ``flash_decode``; the per-block
+   check) beside the trained float tree (greedy agreement logged).
+14. summary.  Every kernel's ``launches`` is the count of the runs above
    that drive the main path (the startup packing of phases 3, 4 and 12,
-   phases 3-6, 9, 11, 12, the serving runs of phase 8 and phase 10's
-   serving and RTN packing for the seven serving-path kernels, phase 7 for
-   the int8 pair), never of the comparisons of phases 2, 8, 9, 10, 11 and
-   12 or of phase 7's repack check (its quantize_pack calls are gated
-   there, not counted).  Every phase logs its wall time.
+   phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
+   serving and RTN packing and phase 13's two serving runs for the seven
+   serving-path kernels, phase 7 for the int8 pair), never of the
+   comparisons of phases 2, 8, 9, 10, 11, 12 and 13 or of phase 7's
+   repack check (its quantize_pack calls are gated there, not counted).
+   Every phase logs its wall time.
 
 Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels (with phase 7's
@@ -385,7 +413,10 @@ def main() -> None:
     # ---- 12. the dense registry at published widths, and W3A16 -----------
     phases.append(registry_phase(torch))
 
-    # ---- 13. summary -------------------------------------------------------
+    # ---- 13. training, and the paper's methods on trained miniatures -------
+    phases.append(train_phase(torch))
+
+    # ---- 14. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -2600,6 +2631,428 @@ def registry_phase(torch) -> dict:
     torch.cuda.empty_cache()
     log(f"[registry] phase 12 wall time {time.perf_counter() - t_phase:.1f} "
         f"s; launches {counts}; {card}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 13. training: opt-125m at published width and depth through
+#     launch/train (with a kill and resume), the llama-7b width at depth 2,
+#     and trained miniatures through the paper's methods, then served
+# ---------------------------------------------------------------------------
+
+TRAIN_DEVICE = "cuda"     # "cpu" rehearses the phase with micro sizes
+TRAIN_ARGS = ["--arch", "opt-125m", "--steps", "200", "--global-batch", "16",
+              "--seq", "128", "--ckpt-every", "100", "--seed", "0",
+              "--device", TRAIN_DEVICE]
+# llama-7b depth cut from 32: float32 params, gradients and two moments are
+# 16 B a parameter (108 GB at 6.74 B parameters), over one 80 GB card
+TRAIN_LLAMA = ("llama-7b", 2)
+TRAIN_LLAMA_STEPS = 10
+# a resumed run against an uninterrupted one, and one step in two
+# microbatches or under remat against one plain step: float32 sums in
+# another order (the embedding's backward accumulates with atomics), each
+# leaf within this share of its largest magnitude
+TRAIN_TOL = 1e-5
+# benchmarks/common.py::trained_model and table1 / table3's budget
+MINI_ARCHS = ("llama-mini", "opt-mini")
+MINI_STEPS = 800
+MINI_EPOCHS = 8
+MINI_CALIB = (16, 96)     # calibration samples x tokens (seed 777)
+MINI_TEST = (32, 96)      # held-out samples x tokens (seed 999)
+
+
+def train_bound_ms(params: int, tokens: int) -> float:
+    """6 x params x tokens of float32 work over the card's float32 peak."""
+    return 6 * params * tokens / FP32_OPS_PER_S * 1e3
+
+
+def _named(tree, path: str = "") -> dict:
+    """{checkpoint key: tensor} of a TrainState or dict tree, on its
+    device."""
+    from repro_torch.train.step import TrainState
+    if isinstance(tree, TrainState):
+        tree = {"0": tree.params, "1": tree.opt, "2": tree.step}
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _named(tree[key], f"{path}||{key}" if path
+                                   else key).items()}
+    return {path: tree}
+
+
+def _leaves_close(torch, tag, got: dict, want: dict, tol: float) -> int:
+    """Every leaf of ``got`` within ``tol`` of the largest magnitude of the
+    same leaf of ``want`` (tensors by checkpoint key); returns how many
+    leaves are bit-equal."""
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"{tag}: the two trees have other leaves")
+    same, worst = 0, (0.0, "")
+    for k, w in want.items():
+        g = got[k]
+        if torch.equal(g, w):
+            same += 1
+            continue
+        w64, g64 = w.to(torch.float64), g.to(torch.float64)
+        rel = ((g64 - w64).abs().max()
+               / w64.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (rel, k))
+        if not rel <= tol:
+            raise RuntimeError(f"{tag}: leaf {k} differs by {rel:.3e} of its "
+                               f"largest magnitude (tol {tol:.0e})")
+    log(f"[{tag}] {same} of {len(want)} leaves bit-equal; the largest "
+        f"difference {worst[0]:.3e} of its leaf's magnitude at {worst[1]!r} "
+        f"(tol {tol:.0e})")
+    return same
+
+
+def _train_log(tag, history, cfg, tokens: int, peak: float, card: str):
+    """Step-time median (first step left out), tokens/s and peak memory
+    beside the bound."""
+    times = [h[3] for h in history]
+    med = statistics.median(times[1:])
+    bound = train_bound_ms(cfg.param_count(), tokens)
+    log(f"[{tag}] {cfg.name} x{cfg.num_layers} ({cfg.param_count()} "
+        f"parameters), {tokens} tokens a step: first step {times[0]:.3f} s, "
+        f"median {med * 1e3:.2f} ms over {len(times) - 1} steps = "
+        f"{tokens / med:.0f} tokens/s; bound 6 x params x tokens / 67 "
+        f"TFLOP/s = {bound:.2f} ms ({bound / (med * 1e3):.3f} of it); peak "
+        f"memory {peak / 2**30:.2f} GiB; {card}")
+
+
+def train_phase(torch) -> dict:
+    """Phase 13 (see the module docstring); returns its launch counts."""
+    import tempfile
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    counts = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_opt(torch, Path(tmp), card)
+        log(f"[train] (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_llama_width(torch, card)
+    log(f"[train] (b) {time.perf_counter() - t0:.1f} s")
+    for arch in MINI_ARCHS:
+        t0 = time.perf_counter()
+        _add(counts, trained_mini(torch, arch, card))
+        log(f"[train] (c) {arch} {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[train] phase 13 wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}; {card}")
+    return counts
+
+
+def train_opt(torch, tmp: Path, card: str) -> None:
+    """(a) opt-125m through ``python -m repro_torch.launch.train``: in
+    process, then the same command as a subprocess killed (SIGKILL) once
+    step 100 is saved and launched again unchanged."""
+    import os
+    import numpy as np
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.launch import calibrate, train
+    from repro_torch.train import checkpoints
+    run, resumed = tmp / "run", tmp / "resumed"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.train(train.build_parser().parse_args(
+        TRAIN_ARGS + ["--ckpt-dir", str(run)]))
+    cfg, hist = out["cfg"], out["history"]
+    log(f"[train-a] {' '.join(TRAIN_ARGS)}: {len(hist)} steps in "
+        f"{time.perf_counter() - t0:.1f} s (checkpoints included); final "
+        f"loss {out['final_loss']:.4f}; corpus entropy floor "
+        f"{out['corpus'].entropy_floor():.4f} nats")
+    arg = lambda name: int(TRAIN_ARGS[TRAIN_ARGS.index(name) + 1])
+    steps, seq, mid = arg("--steps"), arg("--seq"), arg("--ckpt-every")
+    tokens = arg("--global-batch") * seq
+    _train_log("train-a", hist, cfg, tokens, torch.cuda.max_memory_allocated(),
+               card)
+    losses = [h[1] for h in hist]
+    first, last20 = losses[0], statistics.mean(losses[-20:])
+    log(f"[train-a] loss {first:.4f} at step 0 -> {last20:.4f} (mean of the "
+        f"last 20); every 20th: {[round(x, 4) for x in losses[::20]]}")
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise RuntimeError("train-a: a loss is not finite, or a step was "
+                           "skipped")
+    if not last20 <= first - 1.0:
+        raise RuntimeError(f"train-a: the last 20 losses average {last20:.4f}"
+                           f", not 1 nat below the first {first:.4f}")
+    # the kill and the resume
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
+           "--ckpt-dir", str(resumed)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    with open(tmp / "killed.log", "w") as f:
+        proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=f, cwd=ROOT)
+        try:
+            while not (resumed / f"step_{mid:08d}").is_dir():
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    raise RuntimeError(f"train-a: the run to kill ended or "
+                                       f"stalled before step {mid} was saved")
+                time.sleep(0.01)
+        finally:
+            proc.kill()
+            proc.wait()
+    at_kill = checkpoints.latest_step(resumed)
+    log(f"[train-a] SIGKILL once step_{mid:08d} existed "
+        f"({time.perf_counter() - t0:.1f} s after the start); latest "
+        f"checkpoint {at_kill}")
+    if at_kill != mid:
+        raise RuntimeError(f"train-a: the kill came at checkpoint {at_kill}, "
+                           f"not {mid}")
+    t0 = time.perf_counter()
+    again = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+    if again.returncode != 0:
+        raise RuntimeError(f"train-a: the relaunch failed:\n{again.stderr}")
+    said = again.stdout.strip().splitlines()[-1]
+    log(f"[train-a] relaunched unchanged in {time.perf_counter() - t0:.1f} "
+        f"s: {said}")
+    if f"restored checkpoint at step {mid}" not in again.stderr:
+        raise RuntimeError(f"train-a: the relaunch did not restore step {mid}")
+    if checkpoints.latest_step(resumed) != steps:
+        raise RuntimeError(f"train-a: the relaunch did not finish at {steps}")
+    leaves = []
+    for d in (resumed, run):
+        with np.load(d / f"step_{steps:08d}" / "arrays.npz") as z:
+            leaves.append({k: torch.from_numpy(z[k]) for k in z.files})
+    log(f"[train-a] resumed vs uninterrupted step-{steps} checkpoint, gated on "
+        f"{TRAIN_TOL:.0e} of each leaf's largest magnitude (deterministic "
+        f"algorithms off)")
+    _leaves_close(torch, "train-a", *leaves, TRAIN_TOL)
+    # launch/calibrate --ckpt reads the same floats
+    cal = calibrate.calibrate(calibrate.build_parser().parse_args([
+        "--arch", cfg.name, "--ckpt", str(run), "--method", "rtn",
+        "--wbits", "4", "--group", "128", "--calib-samples", "16",
+        "--calib-seq", str(seq), "--seed", "0", "--device", TRAIN_DEVICE]))
+    test = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=0).sample(
+        16, seq, seed=999))
+    mem = calibrate.eval_ppl(out["model"], out["state"].params, test)
+    ckpt = cal["report"]["fp_ppl"]
+    log(f"[train-a] held-out 16 x {seq} fp perplexity: in memory {mem:.4f}, "
+        f"through launch/calibrate --ckpt {ckpt:.4f} (seed-0 random weights "
+        f"give ~59256: PERF.md §5); rtn w4a16g128 {cal['report']['quant_ppl']:.4f}")
+    if not abs(mem - ckpt) <= 1e-6 * mem:
+        raise RuntimeError("train-a: the checkpoint calibrate reads gives "
+                           "another perplexity than the trained params")
+    del out, cal
+    torch.cuda.empty_cache()
+
+
+def train_llama_width(torch, card: str) -> None:
+    """(b) llama-7b widths at depth 2: TRAIN_LLAMA_STEPS steps timed, then
+    one more step plain, in two microbatches and under remat, held leaf for
+    leaf."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus, make_batch_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    arch, depth = TRAIN_LLAMA
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+    log(f"[train-b] {arch} widths, depth cut to {depth} of "
+        f"{get_config(arch).num_layers} layers (16 B a parameter of params, "
+        f"gradients and moments: 108 GB at llama-7b's full depth)")
+    corpus = MarkovCorpus(cfg.vocab_size, seed=0)
+    batches = make_batch_fn(corpus, 16, 128)
+    batch = lambda i: {"tokens": torch.from_numpy(
+        batches(i)["tokens"]).to(TRAIN_DEVICE)}
+    adam = AdamConfig(lr=3e-4, state_dtype=cfg.opt_state_dtype)
+    steps = TRAIN_LLAMA_STEPS
+    warmup = max(steps // 20, 5)
+
+    def stepper(**over):
+        model = build_model(dataclasses.replace(cfg, **over), TRAIN_DEVICE)
+        return model, make_train_step(model, adam, steps, warmup)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step = stepper()
+    state = init_train_state(model, 0, adam)
+    hist = []
+    for i in range(steps):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])
+        hist.append((i, loss, float(m["grad_norm"]),
+                     time.perf_counter() - t0))
+    _train_log("train-b", hist, cfg, 16 * 128,
+               torch.cuda.max_memory_allocated(), card)
+    losses = [h[1] for h in hist]
+    log(f"[train-b] losses {[round(x, 4) for x in losses]}")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError("train-b: a loss is not finite")
+    # one more step from step 10 (lr_scale 0.1: the params move), three ways
+    probe = batch(steps)
+    new, m = step(state, probe)
+    want = _named(new)
+    for tag, over in (("microbatches 2", dict(microbatches=2)),
+                      ("remat", dict(remat=True))):
+        _, other = stepper(**over)
+        got, mo = other(state, probe)
+        rel = abs(float(mo["loss"]) - float(m["loss"])) / float(m["loss"])
+        log(f"[train-b] {tag} vs plain step: loss {float(mo['loss']):.6f} "
+            f"vs {float(m['loss']):.6f} ({rel:.2e} relative)")
+        if not rel <= TRAIN_TOL:
+            raise RuntimeError(f"train-b: {tag} changes the loss")
+        _leaves_close(torch, f"train-b {tag}", _named(got), want,
+                      TRAIN_TOL)
+        del got
+    del state, new, want
+    torch.cuda.empty_cache()
+
+
+def trained_mini(torch, arch: str, card: str) -> dict:
+    """(c) one miniature trained as benchmarks/common.py trains it, the
+    paper's methods on the trained tree (held-out perplexity table, the
+    W2A16 and W4A4 gates of tests/test_system.py), and, for opt-mini, the
+    AffineQuant W4A4 g128 kv8 packed tree served through the Engine beside
+    the float tree.  Returns the serving launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.baselines import quantize_model_baseline
+    from repro_torch.core.calibration import (CalibConfig, finalize_model,
+                                              quantize_dense_model)
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.data import MarkovCorpus, make_batch_fn
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamConfig
+    from repro_torch.serve.quantized import quantize_lm_packed
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = get_config(arch)
+    dev = torch.device(TRAIN_DEVICE)
+    model = build_model(cfg, dev)
+    corpus = MarkovCorpus(vocab=cfg.vocab_size, branching=4, buckets=128,
+                          seed=0)
+    batches = make_batch_fn(corpus, 16, 64)
+    adam = AdamConfig(lr=3e-3)
+    state = init_train_state(model, 0, adam)
+    step = make_train_step(model, adam, total_steps=MINI_STEPS, warmup=50)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(MINI_STEPS):
+        state, m = step(state, {"tokens": torch.from_numpy(
+            batches(i)["tokens"]).to(dev)})
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    secs = time.perf_counter() - t0
+    params = state.params
+    del state
+    calib = torch.from_numpy(corpus.sample(*MINI_CALIB, seed=777))
+    test = torch.from_numpy(corpus.sample(*MINI_TEST, seed=999)).to(dev)
+
+    @torch.no_grad()
+    def ppl(p):
+        return math.exp(float(model.loss(p, {"tokens": test})))
+
+    fp = ppl(params)
+    log(f"[{arch}] trained {MINI_STEPS} steps of 16 x 64 (lr 3e-3, warmup "
+        f"50) in {secs:.1f} s ({secs / MINI_STEPS * 1e3:.2f} ms a step): "
+        f"loss {losses[0]:.4f} -> {statistics.mean(losses[-20:]):.4f}; "
+        f"held-out {MINI_TEST[0]} x {MINI_TEST[1]} perplexity {fp:.4f} "
+        f"(gate < {0.5 * cfg.vocab_size:.0f}; entropy floor "
+        f"{corpus.entropy_floor():.4f} nats = ppl "
+        f"{math.exp(corpus.entropy_floor()):.4f}); {card}")
+    if not (all(map(math.isfinite, losses)) and fp < 0.5 * cfg.vocab_size):
+        raise RuntimeError(f"{arch}: training did not learn the corpus")
+    with torch.no_grad():
+        full = transformer.forward(params, cfg, test)
+
+    @torch.no_grad()
+    def out_mse(p):
+        return float(torch.mean(torch.square(
+            transformer.forward(p, cfg, test) - full)))
+
+    table, mse = {"fp": fp}, {}
+    t0 = time.perf_counter()
+    for w, a in ((4, 16), (2, 16), (4, 4)):
+        qc = QuantConfig(w_bits=w, a_bits=a, group_size=0)
+        methods = (("rtn", "awq", "gptq", "omniquant", "affinequant")
+                   if a == 16 else ("rtn", "omniquant", "affinequant"))
+        for method in methods:
+            if method in ("omniquant", "affinequant"):
+                q, _ = quantize_dense_model(
+                    params, cfg, dataclasses.replace(qc, lwc=True),
+                    CalibConfig(epochs=MINI_EPOCHS, alpha=0.1,
+                                use_affine=method == "affinequant"),
+                    calib, log=False)
+            else:
+                q = quantize_model_baseline(
+                    params, cfg, dataclasses.replace(qc, lwc=False), calib,
+                    method)
+            table[f"{qc.tag()} {method}"] = ppl(q)
+            mse[(qc.tag(), method)] = out_mse(q)
+            del q
+    log(f"[{arch}] held-out perplexity of the trained tree per method "
+        f"(per channel; w4a4 as the reference evaluates it: fake-quant "
+        f"weights through the float forward), {time.perf_counter() - t0:.1f}"
+        f" s: " + ", ".join(f"{k} {v:.4f}" for k, v in table.items()))
+    log(f"[{arch}] output MSE against the float tree: "
+        + ", ".join(f"{t} {m} {v:.4e}" for (t, m), v in mse.items()))
+    w2 = QuantConfig(w_bits=2, a_bits=16, group_size=0).tag()
+    aff, omni, rtn = (mse[(w2, m)] for m in ("affinequant", "omniquant",
+                                             "rtn"))
+    if not (aff < rtn and aff <= omni * 1.02):
+        raise RuntimeError(f"{arch}: at W2A16 AffineQuant's output MSE "
+                           f"{aff:.4e} is not below RTN's {rtn:.4e} and at "
+                           f"most 1.02x OmniQuant-diag's {omni:.4e}")
+    w4a4 = table[f"{QuantConfig(w_bits=4, a_bits=4, group_size=0).tag()} "
+                 f"affinequant"]
+    if not (math.isfinite(w4a4) and w4a4 < 10 * fp):
+        raise RuntimeError(f"{arch}: the W4A4 AffineQuant perplexity {w4a4} "
+                           f"is not finite and below 10x fp's {fp}")
+    counts = {name: 0 for name in KERNELS}
+    if arch != "opt-mini":
+        return counts
+    # AffineQuant W4A4 g128 kv8 packed, served through the Engine
+    qcfg = QuantConfig(w_bits=4, a_bits=4, group_size=128, lwc=True,
+                       kv_bits=8)
+    ccfg = CalibConfig(epochs=MINI_EPOCHS, alpha=0.1)
+    fake, info = quantize_dense_model(params, cfg, qcfg, ccfg, calib,
+                                      log=False)
+    packed = finalize_model(params, info["block_qps"], cfg, qcfg, ccfg,
+                            deploy="packed")
+    argv = _with(SERVE_ARGS, arch=arch, layers=0, device=dev.type,
+                 wbits=4, abits=4, group=128, kvbits=8)
+    out, c = _counted_serve(argv, packed)
+    require_launched(c, ("w4a8_matmul", "flash_prefill", "flash_decode"),
+                     f"{arch}-w4a4")
+    _add(counts, c)
+    fp_out = _float_run(torch, f"{arch}-fp", _with(argv, kvbits=16), params,
+                        counts)
+    agree = serve.agreement(_streams(fp_out), _streams(out))
+    qm = out["model"]
+    with torch.no_grad():
+        lg = qm.prefill_chunk(packed, {"tokens": test},
+                              qm.init_cache(test.shape[0], test.shape[1]),
+                              None)[0]
+        kppl = math.exp(float(layers.cross_entropy(lg[:, :-1], test[:, 1:])))
+    rtn = quantize_lm_packed(params, cfg, qcfg)
+    with torch.no_grad():
+        lg = qm.prefill_chunk(rtn, {"tokens": test},
+                              qm.init_cache(test.shape[0], test.shape[1]),
+                              None)[0]
+        rppl = math.exp(float(layers.cross_entropy(lg[:, :-1], test[:, 1:])))
+    del rtn, lg
+    lp, ls = serve.packed_and_fake_logits(qm, packed, fake, out["prompts"],
+                                          _streams(out))
+    tf = (lp.argmax(-1) == ls.argmax(-1)).float().mean().item()
+    log(f"[{arch}-w4a4] trained AffineQuant w4a4 g128 kv8 served: "
+        f"{out['generated']} tokens at {out['tokens_per_s']:.2f} tok/s; "
+        f"launches {c}; greedy agreement with the trained float tree "
+        f"{agree:.4f} (4 x 32 tokens, the same prompts); held-out perplexity "
+        f"through the kernels (a4 activations, kv8) {kppl:.4f} (RTN w4a4 "
+        f"g128 kv8 through the same kernels {rppl:.4f}), fake-quant "
+        f"simulation {ppl(fake):.4f}, fp {fp:.4f}; teacher-forced argmax "
+        f"agreement with the fake-quant tree {tf:.4f} (float activations "
+        f"there: reported)")
+    _gate_served(torch, f"{arch}-w4a4", out)
+    del out, fp_out, packed, fake, params
+    torch.cuda.empty_cache()
     return counts
 
 

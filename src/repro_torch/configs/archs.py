@@ -4,7 +4,8 @@ the reference registry's other dense archs (``DENSE_ARCHS``).
 Same shapes as the reference registry: OPT = ReLU MLP + LayerNorm + qkv
 biases, its learned positions approximated by sinusoidal ones
 (``rope_theta == 0``; Zhang et al., 2022); LLaMA = SwiGLU + RMSNorm +
-RoPE (Touvron et al., 2023); both tied, float32.  ``opt-125m`` and
+RoPE (Touvron et al., 2023); both tied, float32, trained without remat
+and in one microbatch.  ``opt-125m`` and
 ``llama-7b`` are the published widths; the ``-mini`` / ``-micro`` entries
 are the CPU-sized miniatures the tests use.
 
@@ -13,7 +14,8 @@ published shapes (the sources in brackets): GQA with G = 3, 5 and 4, MQA
 (G = 8), qkv biases with RoPE at theta 1e6, LayerNorm with RoPE, head_dim
 160 and 256, GeGLU, untied heads.  The reference keeps them in bfloat16;
 the port computes them in float32, as it does every arch (its caches and
-its kernels' float operands are float32).
+its kernels' float operands are float32).  Their training fields are the
+reference's: remat on, and 4, 8, 8 and 2 microbatches.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ def _opt(name, L, d, h, ff, vocab=50272) -> ModelConfig:
     return ModelConfig(
         name=name, num_layers=L, d_model=d, num_heads=h, num_kv_heads=h,
         d_ff=ff, vocab_size=vocab, act="relu", norm="layernorm",
-        qkv_bias=True, rope_theta=0.0, tie_embeddings=True, dtype="float32")
+        qkv_bias=True, rope_theta=0.0, tie_embeddings=True, dtype="float32",
+        remat=False)
 
 
 def _llama(name, L, d, h, kv, ff, vocab=32000) -> ModelConfig:
@@ -32,7 +35,7 @@ def _llama(name, L, d, h, kv, ff, vocab=32000) -> ModelConfig:
         name=name, num_layers=L, d_model=d, num_heads=h,
         num_kv_heads=kv, d_ff=ff, vocab_size=vocab, act="swiglu",
         norm="rmsnorm", rope_theta=10000.0, tie_embeddings=True,
-        dtype="float32")
+        dtype="float32", remat=False)
 
 
 PAPER_ARCHS: dict[str, ModelConfig] = {
@@ -50,21 +53,22 @@ DENSE_ARCHS: dict[str, ModelConfig] = {
     "phi4-mini-3.8b": ModelConfig(
         name="phi4-mini-3.8b", num_layers=32, d_model=3072, num_heads=24,
         num_kv_heads=8, head_dim=128, d_ff=8192, vocab_size=200064,
-        act="swiglu", norm="rmsnorm", rope_theta=10000.0),
+        act="swiglu", norm="rmsnorm", rope_theta=10000.0, microbatches=4),
     # [hf:Qwen/Qwen2.5] 48L d 5120 40H (GQA kv 8) d_ff 13824, QKV bias
     "qwen2.5-14b": ModelConfig(
         name="qwen2.5-14b", num_layers=48, d_model=5120, num_heads=40,
         num_kv_heads=8, head_dim=128, d_ff=13824, vocab_size=152064,
-        act="swiglu", norm="rmsnorm", qkv_bias=True, rope_theta=1000000.0),
+        act="swiglu", norm="rmsnorm", qkv_bias=True, rope_theta=1000000.0,
+        microbatches=8),
     # [hf:stabilityai/stablelm-2] 40L d 5120 32H (GQA kv 8) head_dim 160
     "stablelm-12b": ModelConfig(
         name="stablelm-12b", num_layers=40, d_model=5120, num_heads=32,
         num_kv_heads=8, head_dim=160, d_ff=13824, vocab_size=100352,
-        act="swiglu", norm="layernorm", rope_theta=10000.0),
+        act="swiglu", norm="layernorm", rope_theta=10000.0, microbatches=8),
     # [arXiv:2403.08295; hf] 18L d 2048 8H (MQA) head_dim 256, GeGLU, tied
     "gemma-2b": ModelConfig(
         name="gemma-2b", num_layers=18, d_model=2048, num_heads=8,
         num_kv_heads=1, head_dim=256, d_ff=16384, vocab_size=256000,
         act="geglu", norm="rmsnorm", rope_theta=10000.0,
-        tie_embeddings=True),
+        tie_embeddings=True, microbatches=2),
 }

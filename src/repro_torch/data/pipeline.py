@@ -1,4 +1,5 @@
 """Deterministic synthetic corpus: an order-2 Markov chain over the vocab.
+It is the training, calibration and held-out data of the port.
 
 The same generator as the reference's ``data/pipeline.py`` (numpy's
 ``default_rng`` draws in the same order), so ``sample(batch, seq, seed)``
@@ -51,6 +52,12 @@ class MarkovCorpus:
             tok = self.succ[b, choice_idx[:, t]]
             out[:, t] = np.where(noise[:, t] < 0.02, rand_tok[:, t], tok)
         return out
+
+    def entropy_floor(self) -> float:
+        """Per-token entropy of the transition distribution (nats): the
+        loss a model that knew the chain would reach."""
+        h = -np.sum(self.p * np.log(self.p))
+        return float(0.98 * h + 0.02 * np.log(self.vocab))
 
 
 def make_batch_fn(corpus, global_batch: int, seq_len: int,

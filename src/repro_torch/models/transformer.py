@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import KV_BLOCK
@@ -85,11 +86,20 @@ def apply_block_full(p: dict, x: torch.Tensor, cfg,
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (B, T, vocab) of the whole sequence."""
+    """Logits (B, T, vocab) of the whole sequence.  With ``cfg.remat`` and
+    autograd on, each block keeps only its input for backward and runs
+    again there (the reference's ``jax.checkpoint`` around the block): the
+    same values and gradients for less activation memory."""
     x = embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x = apply_block_full(layer(params["layers"], i), x, cfg, positions)
+        p = layer(params["layers"], i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                apply_block_full, p, x, cfg, positions, use_reentrant=False)
+        else:
+            x = apply_block_full(p, x, cfg, positions)
     x = layers.apply_norm(params["ln_f"], x, cfg.norm)
     w = params.get("head")
     return x @ (w if w is not None else params["embed"].T)

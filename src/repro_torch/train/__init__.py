@@ -1,1 +1,2 @@
-"""Checkpoints of the port (the reference's npz layout)."""
+"""Training of the port: the step, the fault-tolerant loop and npz
+checkpoints in the reference's layout."""

@@ -8,8 +8,13 @@ Layout (the reference's ``train/checkpoints.py``)::
 A leaf's path joins its dict keys, sorted, with ``||``; a :class:`QTensor`
 contributes ``.packed``, ``.scale`` and ``.zp`` (the reference's dataclass
 field keys), so ``layers||wq||.packed`` is the stacked packed codes of
-``wq``.  A step is written to ``step_<N>.tmp`` and renamed, and only after
-that are the oldest steps beyond ``keep`` removed.
+``wq``; a :class:`~repro_torch.train.step.TrainState` contributes the
+indices of its fields (the reference registers it without keys), so its
+leaves are ``0||<params path>``, ``1||count``, ``1||mu||…``, ``1||nu||…``
+and ``2``.  :func:`restore` reads a checkpoint into the structure of a
+like tree, as the reference's does.  A step is written to
+``step_<N>.tmp`` and renamed, and only after that are the oldest steps
+beyond ``keep`` removed.
 
 A QTensor's ``bits`` and ``group_size`` are not stored (they are pytree
 aux data in the reference).  :func:`load_tree` recovers them from the
@@ -32,6 +37,7 @@ import torch
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core.qtensor import QTensor
 from repro_torch.device import resolve_device
+from repro_torch.train.step import TrainState
 
 SEP = "||"
 _QT_KEYS = (".packed", ".scale", ".zp")
@@ -63,11 +69,18 @@ def flatten(tree) -> dict:
         elif isinstance(node, QTensor):
             for k in _QT_KEYS:
                 walk(getattr(node, k[1:]), path + (k,))
+        elif isinstance(node, TrainState):
+            for i, v in enumerate(_fields(node)):
+                walk(v, path + (str(i),))
         else:
             out[SEP.join(path)] = _leaf(node)
 
     walk(tree, ())
     return out
+
+
+def _fields(state: TrainState) -> tuple:
+    return state.params, state.opt, state.step
 
 
 def save(ckpt_dir, step: int, tree, keep: int = 3,
@@ -103,6 +116,53 @@ def latest_step(ckpt_dir) -> Optional[int]:
     ckpt_dir = Path(ckpt_dir)
     steps = _steps(ckpt_dir) if ckpt_dir.exists() else []
     return steps[-1] if steps else None
+
+
+def _step_dir(ckpt_dir: Path, step: Optional[int]) -> Path:
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    return ckpt_dir / f"step_{step:08d}"
+
+
+def restore(ckpt_dir, tree_like, step: Optional[int] = None) -> tuple:
+    """Read step ``step`` (the latest by default) into the structure of
+    ``tree_like``: each leaf onto its like-leaf's device and cast to its
+    dtype.  A leaf the checkpoint lacks raises ``KeyError``, another shape
+    ``ValueError``.  Returns (tree, step)."""
+    src = _step_dir(Path(ckpt_dir), step)
+    manifest = json.loads((src / "manifest.json").read_text())["leaves"]
+    with np.load(src / "arrays.npz") as data:
+        def leaf(path: tuple, ref: torch.Tensor) -> torch.Tensor:
+            key = SEP.join(path)
+            if key not in data:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arr = data[key]
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{arr.shape} vs {tuple(ref.shape)}")
+            return tensor_from_numpy(arr, ref.device, manifest.get(
+                key, {}).get("dtype")).to(ref.dtype)
+
+        def rebuild(node, path: tuple):
+            if isinstance(node, dict):
+                return {k: rebuild(v, path + (str(k),))
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(rebuild(v, path + (str(i),))
+                                  for i, v in enumerate(node))
+            if isinstance(node, QTensor):
+                return QTensor(*(rebuild(getattr(node, k[1:]), path + (k,))
+                                 for k in _QT_KEYS), node.bits,
+                               node.group_size)
+            if isinstance(node, TrainState):
+                return TrainState(*(rebuild(v, path + (str(i),))
+                                    for i, v in enumerate(_fields(node))))
+            return leaf(path, torch.as_tensor(node))
+
+        tree = rebuild(tree_like, ())
+    return tree, int(src.name.split("_")[1])
 
 
 def _d_in(cfg, name: str) -> int:
@@ -143,12 +203,7 @@ def load_tree(ckpt_dir, cfg, qcfg, step: Optional[int] = None,
     Index path parts (a list, or a reference ``TrainState``'s fields) stay
     string keys."""
     device = resolve_device(device)
-    ckpt_dir = Path(ckpt_dir)
-    if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    src = ckpt_dir / f"step_{step:08d}"
+    src = _step_dir(Path(ckpt_dir), step)
     manifest = json.loads((src / "manifest.json").read_text())
     tree: dict = {}
     with np.load(src / "arrays.npz") as data:

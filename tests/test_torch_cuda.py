@@ -908,3 +908,108 @@ def test_float_model_kernels_match_plain(dev, arch):
         eng.run()
         streams.append([r.out_tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+def _leaves_within(got: dict, want: dict, rel: float, skip=()) -> None:
+    """Each checkpoint leaf of ``got`` within ``rel`` of the largest
+    magnitude of the same leaf of ``want``."""
+    assert sorted(got) == sorted(want)
+    for k, (w, _) in want.items():
+        if k in skip:
+            continue
+        g = got[k][0].astype(np.float64)
+        w = w.astype(np.float64)
+        err = np.abs(g - w).max()
+        assert err <= rel * np.abs(w).max(), (k, err, np.abs(w).max())
+
+
+@pytest.mark.parametrize("arch", ["llama-micro", "opt-micro"])
+def test_train_step_on_the_card_equals_the_cpu(dev, arch, monkeypatch):
+    """One train step (the first: lr_scale 0, so the params stay and the
+    moments carry the gradients) on the card and on the CPU from the same
+    params and tokens: loss within 1e-5 relative, every leaf within 1e-5
+    of its largest magnitude.  OPT's key bias has a zero gradient in exact
+    arithmetic and holds rounding noise on both devices: held to 1e-6 of
+    the largest moment of its tree instead.  OPT's ReLU has a kink: a
+    pre-activation within a rounding step of zero can take the other side
+    on the other device (one of opt-micro's 131,072 did, at 3.7e-8, and
+    moved a column of w_up's gradient by 3.6e-2 of the leaf), so the CPU
+    step takes the card's ReLU masks, and every pre-activation whose sign
+    differs must lie within 1e-6 of its layer's largest."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamConfig, adam_init
+    from repro_torch.train import checkpoints
+    from repro_torch.train.step import TrainState, make_train_step
+    from repro_torch.utils import tree_map
+    masks, seen = [], []
+
+    class _Relu:
+        """F with a ReLU that records its masks (the card's run) or applies
+        them in order (the CPU's run), recording its inputs in both."""
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def relu(x):
+            seen.append(x.detach().cpu())
+            if not cpu_run:
+                masks.append(seen[-1] > 0)
+                return F.relu(x)
+            return x * masks[len(seen) - len(masks) - 1].to(x.device, x.dtype)
+
+    monkeypatch.setattr(layers, "F", _Relu())
+    cfg = get_config(arch)
+    params = build_model(cfg, "cpu").init(0)
+    adam = AdamConfig(lr=3e-3)
+    tokens = torch.from_numpy(MarkovCorpus(cfg.vocab_size, branching=4,
+                                           buckets=128, seed=0)
+                              .sample(8, 32, seed=1))
+    out, cpu_run = [], False
+    for i, device in enumerate((dev, "cpu")):
+        cpu_run = i == 1
+        p = tree_map(lambda t: t.to(device), params)
+        state = TrainState(p, adam_init(p, adam),
+                           torch.zeros((), dtype=torch.int32, device=device))
+        new, m = make_train_step(build_model(cfg, device), adam, 10, 2)(
+            state, {"tokens": tokens.to(device)})
+        out.append((checkpoints.flatten(new), float(m["loss"])))
+    (card, lg), (cpu, lc) = out
+    n = len(masks)
+    assert n == (cfg.num_layers if cfg.act == "relu" else 0)
+    for mask, z in zip(masks, seen[n:]):
+        flipped = mask != (z > 0)
+        assert torch.all(z[flipped].abs() <= 1e-6 * z.abs().max())
+    assert abs(lg - lc) <= 1e-5 * lc
+    zero = [k for k in cpu if k.endswith("||bk")]
+    for kind in ("||mu||", "||nu||"):
+        top = max(np.abs(a).max() for k, (a, _) in cpu.items() if kind in k)
+        assert all(np.abs(card[k][0]).max() <= 1e-6 * top
+                   for k in zero if kind in k)
+    _leaves_within(card, cpu, 1e-5, skip=zero)
+
+
+def test_adam_update_on_the_card_equals_the_cpu(dev):
+    """Three AdamW updates (clipping, decay on the matrix) on the card and
+    on the CPU: every leaf within 1e-6 of its largest magnitude."""
+    from repro_torch.optim import AdamConfig, adam_init, adam_update
+    from repro_torch.train import checkpoints
+    rng = np.random.default_rng(4)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    params = {"w": f32(3, 64, 96), "b": f32(96)}
+    grads = [{"w": 3 * f32(3, 64, 96), "b": f32(96)} for _ in range(3)]
+    cfg = AdamConfig(lr=1e-2, weight_decay=0.1)
+    out = []
+    for device in ("cpu", dev):
+        p = {k: v.to(device) for k, v in params.items()}
+        state = adam_init(p, cfg)
+        for g in grads:
+            p, state = adam_update(p, {k: v.to(device) for k, v in g.items()},
+                                   state, cfg, 0.7)
+        out.append(checkpoints.flatten({"p": p, **state}))
+    assert int(out[1]["count"][0]) == 3
+    _leaves_within(out[1], out[0], 1e-6)

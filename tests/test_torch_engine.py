@@ -5,6 +5,7 @@ engine's own scheduling contracts."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.core.quantizer import QuantConfig as JQuantConfig
@@ -18,6 +19,18 @@ from repro_torch.configs import get_config
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.serve.engine import Engine, RequestStatus, ServeConfig
 from repro_torch.serve.quantized import QuantizedModel
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SERVE = dict(max_batch=2, max_len=64, max_new=6, prefill_bucket=16)
 LENGTHS = (5, 17, 9, 30, 3)

@@ -21,6 +21,18 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.int8_matmul import (int8_matmul, int8_matmul_plain,
                                              w8a8_dynamic_plain, w8a8_matmul)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 RTOL = 1e-6
 

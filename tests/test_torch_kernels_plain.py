@@ -24,6 +24,18 @@ from repro_torch.kernels.flash_prefill import flash_prefill_plain
 from repro_torch.kernels.int8_matmul import quant_matmul_plain
 from repro_torch.core.qtensor import QTensor
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 
 

@@ -20,6 +20,17 @@ from repro_torch.kernels.quantize_pack import (kv4_check_head_dim,
                                                kv4_dequant, kv4_quantize)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bytes(t):
     return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 \
         else t.numpy()

@@ -12,6 +12,17 @@ from repro_torch.core import packing as tpack
 from repro_torch.core.quantizer import QuantConfig, quantize_codes
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
 def test_pack_unpack_byte_equal(bits):
     rng = np.random.default_rng(bits)

@@ -37,6 +37,17 @@ from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve.quantized import QuantizedModel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     """numpy (bfloat16 included) -> torch."""
     if a is None:

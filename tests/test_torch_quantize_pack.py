@@ -26,6 +26,18 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import (quantize_pack,
                                                quantize_pack_plain)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 
 

@@ -32,6 +32,18 @@ from repro_torch.configs import get_config
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.serve.quantized import QuantizedModel, _kv_quantize
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's small shapes: as fast alone,
+    and under parallel test workers torch does not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SETTINGS = {"w4a16kv16": dict(w_bits=4, a_bits=16, kv_bits=16, tol=1e-5),
             "w4a4kv8": dict(w_bits=4, a_bits=4, kv_bits=8, tol=1e-4)}
 
