@@ -45,8 +45,15 @@ failure raises (exit code != 0).
    kv16, kv8 and kv4 for (D, G, Hkv) = (128, 3, 8) phi4-mini, (128, 5, 8)
    qwen2.5-14b, (160, 4, 8) stablelm-12b (the value-by-value copies at
    D % 64 != 0) and (256, 8, 1) gemma-2b (MQA, the largest shared-memory
-   request), each against its plain version and the paged kernels bit for
-   bit against the linear ones.
+   request), and the MoE registry's (128, 8, 4) qwen3-moe-30b-a3b and
+   (128, 6, 8) dbrx-132b, each against its plain version and the paged
+   kernels bit for bit against the linear ones.  The MoE archs'
+   attention linears: w4a8_matmul at M = 4 and 512 for qwen3-moe's 2048 ->
+   4096, 2048 -> 512 (the narrowest N any phase runs) and 4096 -> 2048
+   and dbrx's 6144 -> 6144 and 6144 -> 1024 (bit for bit, rows equal
+   across M), dequant_matmul at 2048 -> 512, and quantize_pack at their
+   weight and expert shapes (2048 x 4096, 2048 x 512, 4096 x 2048, 2048
+   x 768, 768 x 2048, 6144 x 10752, 10752 x 6144).
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -195,12 +202,38 @@ failure raises (exit code != 0).
    AffineQuant W4A4 g128 kv8 packed tree served through the Engine
    (``w4a8_matmul``, ``flash_prefill``, ``flash_decode``; the per-block
    check) beside the trained float tree (greedy agreement logged).
-14. summary.  Every kernel's ``launches`` is the count of the runs above
-   that drive the main path (the startup packing of phases 3, 4 and 12,
-   phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
-   serving and RTN packing and phase 13's two serving runs for the seven
-   serving-path kernels, phase 7 for the int8 pair), never of the
-   comparisons of phases 2, 8, 9, 10, 11, 12 and 13 or of phase 7's
+14. the MoE family (the experts run on float activations: dequantized
+   from their codes to float32 every step and multiplied by torch.bmm, the
+   reference's one float-activation site; routing flips between the
+   kernel and plain paths are counted in every per-block check and gated
+   at MOE_FLIP_SHARE): (a) qwen3-moe-30b-a3b W4A4 g128 kv8 at published
+   width and depth (48 layers, 128 experts top-8), seed-0 weights packed
+   layer by layer at startup (18,624 quantize_pack launches, one a
+   matrix), phase 3's requests over the linear cache, pages of 64
+   (streams equal: whole-prompt admission prefills the same rows in both
+   layouts, so the per-call expert capacities match), chunks of 64 into a
+   10-page pool (must preempt and complete; capacity competes per chunk,
+   so its streams are logged, not held) and kv4 paged, the per-block
+   check on the linear and kv4 runs; tok/s and the decode step beside the
+   packed bytes' stream time, weight / KV bytes and peak memory; (b) the
+   float qwen3-moe at published width, depth cut to 8 (22.43 GB), linear
+   == paged, the per-block check of the kv16 kernels; (c) AffineQuant
+   W4A4 and W4A16 of two of its layers with phase 8's budget and gates
+   (the ln_mlp site transforms the router and every expert; at W4A16 the
+   packed tree against the fake-quant tree through the float Model on the
+   same calls); (d) training at its widths at depth 2, 10 steps of 16 x
+   128 tokens against 6 x active params x tokens / 67 TFLOP/s, one step
+   under remat held to the plain step, and one in two microbatches held
+   to the mean of the plain losses of its halves (capacity raised so no
+   token drops); (e) dbrx-132b W4A4 g128 kv8 at published width, depth
+   cut to 4 (LayerNorm, 16 experts top-4, untied head), linear == paged
+   and the per-block check.  Each part logs its wall time.
+15. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (the startup packing of phases 3, 4, 12 and
+   14, phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
+   serving and RTN packing, phase 13's two serving runs and phase 14's
+   serving runs for the seven serving-path kernels, phase 7 for the int8
+   pair), never of the comparisons of phases 2, 8-14 or of phase 7's
    repack check (its quantize_pack calls are gated there, not counted).
    Every phase logs its wall time.
 
@@ -243,9 +276,18 @@ LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
 # opt-125m's linears (q/k/v/o, fc1, fc2), decode and a 512-token prefill
 OPT_LINEAR_SHAPES = tuple((m, k, n) for m in (4, 512)
                           for k, n in ((768, 768), (768, 3072), (3072, 768)))
+# the MoE archs' attention linears: qwen3-moe-30b-a3b's q (2048 -> 4096),
+# k / v (2048 -> 512) and o (4096 -> 2048), dbrx-132b's q / o (6144 ->
+# 6144) and k / v (6144 -> 1024); decode and a 512-token prefill
+MOE_LINEAR_SHAPES = tuple((m, k, n) for m in (4, 512)
+                          for k, n in ((2048, 4096), (2048, 512),
+                                       (4096, 2048), (6144, 6144),
+                                       (6144, 1024)))
 # (D, G, Hkv) of the dense registry's attention: phi4-mini, qwen2.5-14b,
-# stablelm-12b, gemma-2b; phase 2 runs each at kv16, kv8 and kv4
-REGISTRY_ATTN = ((128, 3, 8), (128, 5, 8), (160, 4, 8), (256, 8, 1))
+# stablelm-12b, gemma-2b, and of the MoE registry's: qwen3-moe-30b-a3b,
+# dbrx-132b; phase 2 runs each at kv16, kv8 and kv4
+REGISTRY_ATTN = ((128, 3, 8), (128, 5, 8), (160, 4, 8), (256, 8, 1),
+                 (128, 8, 4), (128, 6, 8))
 # Earlier times of the redesigned kernels as PERF.md records them (H100
 # 80GB HBM3, 700 W), logged beside this run's.
 _MAIN_PREFILL = "B=4 C=128 S=128 Hkv=32 G=1 D=128 kv{} offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]"
@@ -416,7 +458,10 @@ def main() -> None:
     # ---- 13. training, and the paper's methods on trained miniatures -------
     phases.append(train_phase(torch))
 
-    # ---- 14. summary -------------------------------------------------------
+    # ---- 14. the MoE family ------------------------------------------------
+    phases.append(moe_phase(torch))
+
+    # ---- 15. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -534,7 +579,7 @@ def check_kernels(torch, timer, results) -> None:
 
     # ---- the two matmuls: every linear shape of llama-7b, decode + prefill
     g, bits = 128, 4
-    for m, k, n in LINEAR_SHAPES + OPT_LINEAR_SHAPES:
+    for m, k, n in LINEAR_SHAPES + OPT_LINEAR_SHAPES + MOE_LINEAR_SHAPES:
         x = randn(m, k)
         codes = torch.randint(0, 16, (k, n), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -580,8 +625,10 @@ def check_kernels(torch, timer, results) -> None:
             f"device work alone {dev_ms:.4f} ms, host enqueue "
             f"{host_ms:.4f} ms a call")
 
-        if (m, k, n) not in LINEAR_SHAPES and (k, n) != (768, 3072):
-            continue          # dequant_matmul: opt-125m's fc1 shape only
+        if (m, k, n) not in LINEAR_SHAPES and (k, n) not in ((768, 3072),
+                                                             (2048, 512)):
+            continue          # dequant_matmul: opt-125m's fc1, qwen3-moe's k
+
         want = dq.dequant_matmul_plain(x, packed, scale, zp, bits=bits,
                                        group_size=g)
         got = dq.dequant_matmul(x, packed, scale, zp, bits=bits, group_size=g)
@@ -1031,8 +1078,10 @@ def check_int8_kernels(torch, timer, results) -> None:
 
 def check_quantize_pack(torch, timer, results) -> None:
     """quantize_pack at llama-7b's weight shapes (w4 g128 both ways, then
-    w2, w8 and per-channel w4 on 4096 x 11008): packed bytes, scales and
-    zero points equal to the plain version's.  No single PyTorch call
+    w2, w8 and per-channel w4 on 4096 x 11008), opt-125m's fc1 and the MoE
+    archs' (qwen3-moe's q, k / v, o and one expert's up / gate and down;
+    dbrx's expert up and down): packed bytes, scales and zero points equal
+    to the plain version's.  No single PyTorch call
     computes it, so it has no library time.  Bound: 4 K N bytes read and
     K N bits / 8 + 8 N K / g written, or 7 float32 operations an element
     (max, min, quotient, round, add, two clamps)."""
@@ -1040,7 +1089,11 @@ def check_quantize_pack(torch, timer, results) -> None:
     gen = torch.Generator(device="cuda").manual_seed(3)
     for k, n, bits, g in ((4096, 11008, 4, 128), (11008, 4096, 4, 128),
                           (4096, 11008, 2, 128), (4096, 11008, 8, 128),
-                          (4096, 11008, 4, 0), (768, 3072, 4, 128)):
+                          (4096, 11008, 4, 0), (768, 3072, 4, 128),
+                          (2048, 4096, 4, 128), (2048, 512, 4, 128),
+                          (4096, 2048, 4, 128), (2048, 768, 4, 128),
+                          (768, 2048, 4, 128), (6144, 10752, 4, 128),
+                          (10752, 6144, 4, 128)):
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         case = f"K={k} N={n} w{bits} g{g}"
         got = qp.quantize_pack(w, bits=bits, group_size=g)
@@ -1136,8 +1189,12 @@ def serve_w4a4(torch, params) -> tuple[dict, list, "torch.Tensor"]:
 
 
 def gate_blockwise(torch, tag, out, prompts, gen, **paged) -> None:
-    """The per-block teacher-forced check, logged and gated at ROW_SHARE."""
+    """The per-block teacher-forced check, logged and gated at ROW_SHARE;
+    an MoE model's routing flips are counted and gated at
+    MOE_FLIP_SHARE."""
     share, n_rows, worst = blockwise_check(torch, out, prompts, gen, **paged)
+    flips = share.pop("flip", None)
+    n_routed = n_rows.pop("flip", 0)
     log(f"[{tag}] per-block teacher-forced kernels vs plain (prefill + "
         f"{paged.get('steps', 8)} decode steps, every layer): "
         f"{share['block']:.4f} of "
@@ -1145,6 +1202,15 @@ def gate_blockwise(torch, tag, out, prompts, gen, **paged) -> None:
         f"of {n_rows['logit']} logit rows agree to {ROW_TOL:.0e} (gate "
         f"{ROW_SHARE} each); largest row difference {worst[0]:.3e} at "
         f"{worst[1]}")
+    if flips is not None:
+        log(f"[{tag}] routing flips (a token's top-{out['cfg'].top_k} "
+            f"experts differ between the two paths' MoE inputs): "
+            f"{round(flips * n_routed)} of {n_routed} routed token rows "
+            f"(gate {MOE_FLIP_SHARE}); a flipped row, and the rows its "
+            f"expert then drops, count against the row gate above")
+        if not flips <= MOE_FLIP_SHARE:
+            raise RuntimeError(f"{tag}: routing flips beyond "
+                               f"{MOE_FLIP_SHARE} of the rows")
     if not min(share.values()) >= ROW_SHARE:
         raise RuntimeError(f"{tag}: blocks of the kernel path disagree with "
                            f"the plain versions")
@@ -1189,14 +1255,19 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
     identical K/V and the caches stay equal; only the attention kernels'
     summation order differs.  A token row therefore comes out equal to a
     few ulps, unless such an ulp moved one of its a4 activation codes by
-    one step, which changes that row by up to ~10%.  Returns (share of
-    rows agreeing to ROW_TOL, rows, (largest row difference, where))."""
+    one step, which changes that row by up to ~10%.  The model may be the
+    packed or the float one; an MoE model's routing is recorded on both
+    paths and the rows whose experts differ are counted ("flip").  Returns
+    (share of rows agreeing to ROW_TOL, rows, (largest row difference,
+    where))."""
+    import dataclasses
     from repro_torch.serve import kv_cache as kvc
     from repro_torch.models.init import layer
-    from repro_torch.serve.quantized import QuantizedModel
     cfg, params = out["cfg"], out["params"]
     dev = out["model"].device
-    models = [QuantizedModel(cfg, out["qcfg"], mode=m, device=dev)
+    fields = {f.name: getattr(out["model"], f.name)
+              for f in dataclasses.fields(out["model"])}
+    models = [_recording(type(out["model"]))(**dict(fields, mode=m))
               for m in ("auto", "plain")]
     tokens = prompts.to(dev)
     b, t = tokens.shape
@@ -1215,9 +1286,15 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
     else:
         caches = [m.init_cache(b, 512) for m in models]
     stats = {k: {"agree": 0, "rows": 0} for k in ("block", "logit")}
+    if cfg.num_experts:
+        stats["flip"] = {"agree": 0, "rows": 0}
     worst = [0.0, ""]
 
     def compare(ya, yp, where, kind="block"):
+        if kind == "block" and cfg.num_experts:
+            ra, rp = (m.routes.pop() for m in models)
+            stats["flip"]["agree"] += int((ra != rp).any(-1).sum())
+            stats["flip"]["rows"] += ra.shape[0]
         d = (ya - yp).abs().amax(-1).flatten()
         rel = d / yp.abs().amax(-1).flatten()
         stats[kind]["agree"] += int((rel <= ROW_TOL).sum())
@@ -1303,6 +1380,32 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
         raise RuntimeError("blockwise_check: a shared page was written")
     return ({k: v["agree"] / v["rows"] for k, v in stats.items()},
             {k: v["rows"] for k, v in stats.items()}, tuple(worst))
+
+
+_RECORDING: dict = {}
+
+
+def _recording(cls):
+    """``cls`` (a serving model class) whose MoE calls record their routing:
+    each call appends the sorted expert ids (tokens, top_k) of its input to
+    ``routes``."""
+    if cls not in _RECORDING:
+        import torch
+        from repro_torch.models import moe
+
+        class Recording(cls):
+            def __post_init__(self):
+                super().__post_init__()
+                object.__setattr__(self, "routes", [])
+
+            def _moe_apply(self, mp, h):
+                ids = moe.route(mp["router"], h.reshape(-1, h.shape[-1]),
+                                self.cfg.top_k)[2]
+                self.routes.append(torch.sort(ids, dim=-1)[0])
+                return super()._moe_apply(mp, h)
+
+        _RECORDING[cls] = Recording
+    return _RECORDING[cls]
 
 
 def serve_a16(torch) -> dict:
@@ -3052,6 +3155,368 @@ def trained_mini(torch, arch: str, card: str) -> dict:
         f"there: reported)")
     _gate_served(torch, f"{arch}-w4a4", out)
     del out, fp_out, packed, fake, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+
+# ---------------------------------------------------------------------------
+# 14. the MoE family: qwen3-moe-30b-a3b W4A4 at published width and depth,
+#     its float model, calibration and training, and dbrx-132b W4A4
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 48           # the published depth (packed: ~19 GB)
+MOE_FP_LAYERS = 8         # float32 experts: 48 layers would be 122 GB
+MOE_CALIB_LAYERS = 2      # phase 8's depth and budget
+MOE_TRAIN_LAYERS = 2      # 16 B a parameter of params, gradients, moments
+MOE_TRAIN_STEPS = 10
+DBRX_ARCH = "dbrx-132b"
+DBRX_LAYERS = 4           # 40 packed layers would be ~71 GB
+MOE_POOL_PAGES = 10       # 4 x (128 + 32 + 1) positions need 12 pages of 64
+# routing flips the per-block check may count: a flip needs a token's
+# k-th and (k+1)-th router probabilities within an ulp-sized change of its
+# MoE input, so a wrong kernel (most rows far off) fails it, a few flips
+# over tens of thousands of rows do not
+MOE_FLIP_SHARE = 0.01
+
+
+def moe_phase(torch) -> dict:
+    """Phase 14 (see the module docstring); returns its launch counts."""
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    counts = {name: 0 for name in KERNELS}
+    t0 = time.perf_counter()
+    _add(counts, moe_serve(torch, card))
+    log(f"[moe] (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(counts, moe_float(torch, card))
+    log(f"[moe] (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(counts, moe_calibrate(torch, card))
+    log(f"[moe] (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_train(torch, card)
+    log(f"[moe] (d) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(counts, dbrx_serve(torch, card))
+    log(f"[moe] (e) {time.perf_counter() - t0:.1f} s")
+    log(f"[moe] phase 14 wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}; {card}")
+    return counts
+
+
+def _moe_build(torch, tag, argv, counts) -> tuple:
+    """Seeded random float layers RTN-packed one at a time at startup
+    (quantize_pack, one launch a linear or expert matrix, counted and
+    checked); returns (cfg, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    c = {name: 0 for name in KERNELS}
+    with counted(c):
+        cfg, _, params, _, _ = serve.build_model(
+            serve.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+    want = cfg.num_layers * (4 + 3 * cfg.num_experts)
+    full = get_config(cfg.name)
+    log(f"[{tag}] {cfg.name} x{cfg.num_layers}: d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-"
+        f"{cfg.top_k} of d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.norm}; {cfg.param_count()} parameters at this depth "
+        f"({full.param_count()}, {full.active_param_count()} active a "
+        f"token, at {full.num_layers} layers); init + RTN packing layer by "
+        f"layer "
+        f"{time.perf_counter() - t0:.1f} s, {c['quantize_pack']} "
+        f"quantize_pack launches, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if c["quantize_pack"] != want:
+        raise RuntimeError(f"{tag}: {c['quantize_pack']} quantize_pack "
+                           f"launches, not one per matrix ({want})")
+    _add(counts, c)
+    return cfg, params
+
+
+def _moe_served(torch, tag, out, c, card) -> None:
+    """Log a W4A4 MoE serving run beside its weight-stream bound; gate its
+    launches and its 32 valid tokens a request."""
+    steps = out["step_seconds"]
+    med = statistics.median(steps[1:]) * 1e3
+    wb = out["weight_bytes"]
+    log(f"[{tag}] {out['cfg'].name} x{out['cfg'].num_layers} {out['tag']}: "
+        f"{out['generated']} tokens in {out['seconds']:.3f} s = "
+        f"{out['tokens_per_s']:.2f} tok/s (prefill of 4x128 included); first "
+        f"step {steps[0]:.4f} s, decode step median {med:.2f} ms over "
+        f"{len(steps) - 1} steps against the weight-stream bound "
+        f"{wb / HBM_BYTES_PER_S * 1e3:.3f} ms (packed bytes {wb} / 3.35 "
+        f"TB/s; every step dequantizes every expert to float32); KV bytes "
+        f"{out['kv_bytes']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {c}; "
+        f"{card}")
+    require_launched(c, ("w4a8_matmul", "flash_prefill", "flash_decode"),
+                     tag)
+    vocab = out["cfg"].vocab_size
+    if any(len(s) != 32 or not all(0 <= t < vocab for t in s)
+           for s in _streams(out)):
+        raise RuntimeError(f"{tag}: a request did not produce 32 valid "
+                           f"tokens")
+
+
+def moe_serve(torch, card) -> dict:
+    """(a) qwen3-moe-30b-a3b W4A4 g128 kv8 at published width and depth:
+    linear, pages of 64 (streams equal), chunks of 64 into a 10-page pool
+    (must preempt and complete) and kv4 paged, each with the per-block
+    check (routing flips counted)."""
+    from repro_torch.launch.serve import agreement
+    counts = {name: 0 for name in KERNELS}
+    argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_LAYERS)
+    _, params = _moe_build(torch, "moe", argv, counts)
+    dequant_probe(torch, params, card)
+    torch.cuda.reset_peak_memory_stats()
+    out, c = _counted_serve(argv, params)
+    _moe_served(torch, "moe", out, c, card)
+    _add(counts, c)
+    base = _streams(out)
+    _gate_served(torch, "moe", out)
+    del out
+    torch.cuda.empty_cache()
+    paged, c = _serve_paged_run(torch, "moe-paged", params, base=argv,
+                                page_size=64)
+    _add(counts, c)
+    if _streams(paged) != base:
+        raise RuntimeError("moe-paged: the paged streams differ from the "
+                           "linear ones")
+    log("[moe-paged] greedy streams equal the linear streams token for "
+        "token (whole-prompt admission prefills the same 4 x 128 rows in "
+        "both layouts, so the expert capacities match)")
+    del paged
+    pool, c = _serve_paged_run(torch, "moe-pool", params, base=argv,
+                               page_size=64, prefill_chunk=64,
+                               num_pages=MOE_POOL_PAGES)
+    _add(counts, c)
+    if pool["preemptions"] < 1:
+        raise RuntimeError(f"moe-pool: the {MOE_POOL_PAGES}-page pool never "
+                           f"preempted")
+    require_launched(c, ("flash_prefill_paged", "flash_decode_paged"),
+                     "moe-pool")
+    log(f"[moe-pool] every request completed; greedy agreement with the "
+        f"linear streams {agreement(base, _streams(pool)):.4f} (reported: "
+        f"expert capacity competes per chunk, the reference's documented "
+        f"approximation)")
+    del pool
+    kv4, c = _serve_paged_run(torch, "moe-kv4", params, base=argv, kvbits=4,
+                              max_new=8, page_size=64, prefill_chunk=64)
+    _add(counts, c)
+    require_launched(c, ("flash_prefill_paged", "flash_decode_paged"),
+                     "moe-kv4")
+    _gate_served(torch, "moe-kv4", kv4, page_size=64, chunk=64)
+    del kv4, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dequant_probe(torch, params, card) -> None:
+    """Dequantizing one layer's three expert leaves, the work every MoE
+    decode step repeats in every layer: the codes through ``unpack``'s
+    uint8 byte split (the w4 route) equal those through its 64-bit lane
+    route (w3 / w5-7); the median time of each and of the whole
+    ``QTensor.dequantize`` (L2 flushed before each call)."""
+    from repro_torch.core.packing import unpack, unpack_lanes
+    from repro_torch.models.init import layer
+    leaves = [v for k, v in sorted(layer(params["layers"], 0)["moe"].items())
+              if k != "router"]
+    for qt in leaves:
+        if not torch.equal(unpack(qt.packed, qt.bits, qt.d_in),
+                           unpack_lanes(qt.packed, qt.bits, qt.d_in)):
+            raise RuntimeError("unpack's byte split and lane routes differ")
+    timer = Timer(torch)
+    split, lanes, deq = (timer(lambda: [f(qt) for qt in leaves], reps=5)
+                         for f in (
+        lambda qt: unpack(qt.packed, qt.bits, qt.d_in),
+        lambda qt: unpack_lanes(qt.packed, qt.bits, qt.d_in),
+        lambda qt: qt.dequantize()))
+    nbytes = sum(qt.nbytes for qt in leaves)
+    log(f"[moe] one layer's 3 x {leaves[0].packed.shape[0]} expert leaves "
+        f"({nbytes} packed bytes): unpack by uint8 byte split {split:.3f} "
+        f"ms, by 64-bit lanes {lanes:.3f} ms (equal codes); whole "
+        f"dequantize to float32 {deq:.3f} ms, x {len(params['layers']['ln_attn']['scale'])} "
+        f"layers a decode step; {card}")
+    del timer
+
+
+def moe_float(torch, card) -> dict:
+    """(b) the float qwen3-moe at published width, depth cut: the float
+    Model over the linear cache and pages of 64 (streams equal), and the
+    per-block check of the kv16 attention kernels against the plain
+    versions (routing flips counted)."""
+    from repro_torch.launch import serve
+    counts = {name: 0 for name in KERNELS}
+    argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_FP_LAYERS)
+    log(f"[fp-moe] depth cut to {MOE_FP_LAYERS} of {MOE_LAYERS} layers "
+        f"(float32 experts: 2.42 GB a layer)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = serve.build_model(serve.build_parser().parse_args(
+        _with(argv, fp=True)))[2]
+    torch.cuda.synchronize()
+    log(f"[fp-moe] random init {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; {card}")
+    lin = _float_run(torch, "fp-moe", argv, params, counts)
+    base = _streams(lin)
+    _gate_served(torch, "fp-moe", lin)
+    del lin
+    paged = _float_run(torch, "fp-moe-paged", argv, params, counts,
+                       paged=True, page_size=64)
+    if _streams(paged) != base:
+        raise RuntimeError("fp-moe-paged: the paged float streams differ "
+                           "from the linear ones")
+    log("[fp-moe-paged] greedy streams equal the linear streams token for "
+        "token")
+    del paged, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_calibrate(torch, card) -> dict:
+    """(c) AffineQuant W4A4 g128 kv8 and W4A16 g128 calibration of two
+    qwen3-moe layers at published width with phase 8's budget and gates;
+    each packed tree through the npz checkpoints and served."""
+    counts = {name: 0 for name in KERNELS}
+    calib_argv = _with(CALIB_ARGS, arch=MOE_ARCH, layers=MOE_CALIB_LAYERS)
+    serve_argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_CALIB_LAYERS)
+    log(f"[moe-calibrate] {MOE_ARCH} widths, depth cut to "
+        f"{MOE_CALIB_LAYERS} of {MOE_LAYERS} layers; 32 x 512 calibration "
+        f"tokens, batch 8, 3 epochs, alpha 0.1; the ln_mlp site transforms "
+        f"the router and all 128 experts' gate and up projections; {card}")
+    params = None
+    for run, flags in CALIB_RUNS.items():
+        out = calibrate_run(torch, f"moe-calibrate-{run}", calib_argv,
+                            serve_argv, flags, counts, params)
+        params = out["params"]
+        del out
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_train(torch, card) -> None:
+    """(d) qwen3-moe widths at depth 2: MOE_TRAIN_STEPS steps of 16 x 128
+    tokens timed against 6 x active params x tokens / 67 TFLOP/s; then one
+    step under remat held to the plain step leaf for leaf, and one step in
+    two microbatches held to the mean of the plain losses of its halves
+    (capacity raised so no token drops in either: the per-call capacity and
+    the load-balance term are per microbatch, as in the reference)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus, make_batch_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS,
+                              microbatches=1, remat=False)
+    log(f"[moe-train] {MOE_ARCH} widths, depth cut to {MOE_TRAIN_LAYERS} "
+        f"of {full.num_layers} layers ({cfg.param_count()} parameters, "
+        f"{cfg.active_param_count()} active a token)")
+    corpus = MarkovCorpus(cfg.vocab_size, seed=0)
+    batches = make_batch_fn(corpus, 16, 128)
+    batch = lambda i: {"tokens": torch.from_numpy(
+        batches(i)["tokens"]).to(TRAIN_DEVICE)}
+    adam = AdamConfig(lr=3e-4, state_dtype=cfg.opt_state_dtype)
+    steps = MOE_TRAIN_STEPS
+
+    def stepper(**over):
+        model = build_model(dataclasses.replace(cfg, **over), TRAIN_DEVICE)
+        return model, make_train_step(model, adam, steps, 5)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step = stepper()
+    state = init_train_state(model, 0, adam)
+    hist = []
+    for i in range(steps):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        hist.append((float(m["loss"]), time.perf_counter() - t0))
+    times = [h[1] for h in hist]
+    med = statistics.median(times[1:])
+    tokens = 16 * 128
+    bnd = train_bound_ms(cfg.active_param_count(), tokens)
+    losses = [h[0] for h in hist]
+    log(f"[moe-train] {tokens} tokens a step: first step {times[0]:.3f} s, "
+        f"median {med * 1e3:.2f} ms over {steps - 1} steps = "
+        f"{tokens / med:.0f} tokens/s; bound 6 x active params x tokens / "
+        f"67 TFLOP/s = {bnd:.2f} ms ({bnd / (med * 1e3):.3f} of it); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}; {card}")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError("moe-train: a loss is not finite")
+    # one more step, plain and under remat: the moments of one state are
+    # dropped before the other is made (a state is 22 GB at this size), so
+    # the params (which the moments moved) and the grad norm are compared
+    probe = batch(steps)
+    new, m = step(state, probe)
+    want = _named(new.params)
+    del new
+    _, remat = stepper(remat=True)
+    got, mo = remat(state, probe)
+    for name in ("loss", "grad_norm"):
+        rel = abs(float(mo[name]) - float(m[name])) / float(m[name])
+        log(f"[moe-train] remat vs plain step: {name} {float(mo[name]):.6f} "
+            f"vs {float(m[name]):.6f} ({rel:.2e} relative)")
+        if not rel <= TRAIN_TOL:
+            raise RuntimeError(f"moe-train: remat changes the {name}")
+    _leaves_close(torch, "moe-train remat", _named(got.params), want,
+                  TRAIN_TOL)
+    del got, want
+    torch.cuda.empty_cache()
+    # two microbatches: no token drops (capacity = every token)
+    wide = full.num_experts / full.top_k
+    _, plain = stepper(capacity_factor=wide)
+    halves = [float(plain(state, {"tokens": probe["tokens"][h]})[1]["loss"])
+              for h in (slice(0, 8), slice(8, 16))]
+    mean = (halves[0] + halves[1]) / 2
+    _, micro = stepper(capacity_factor=wide, microbatches=2)
+    _, mm = micro(state, probe)
+    rel = abs(float(mm["loss"]) - mean) / mean
+    log(f"[moe-train] two microbatches vs the plain step on each half: loss "
+        f"{float(mm['loss']):.6f} vs mean {mean:.6f} ({rel:.2e} relative, "
+        f"tol {TRAIN_TOL:.0e})")
+    if not rel <= TRAIN_TOL:
+        raise RuntimeError("moe-train: the microbatched step's loss is not "
+                           "the mean of its microbatches' plain losses")
+    del state
+    torch.cuda.empty_cache()
+
+
+def dbrx_serve(torch, card) -> dict:
+    """(e) dbrx-132b W4A4 g128 kv8 at published width, depth cut: linear
+    and pages of 64 (streams equal), the per-block check."""
+    counts = {name: 0 for name in KERNELS}
+    argv = _with(SERVE_ARGS, arch=DBRX_ARCH, layers=DBRX_LAYERS)
+    log(f"[dbrx] depth cut to {DBRX_LAYERS} of 40 layers (a float layer is "
+        f"12.7 GB; 40 packed layers would be ~71 GB)")
+    _, params = _moe_build(torch, "dbrx", argv, counts)
+    torch.cuda.reset_peak_memory_stats()
+    out, c = _counted_serve(argv, params)
+    _moe_served(torch, "dbrx", out, c, card)
+    _add(counts, c)
+    paged, c = _serve_paged_run(torch, "dbrx-paged", params, base=argv,
+                                page_size=64)
+    _add(counts, c)
+    if _streams(paged) != _streams(out):
+        raise RuntimeError("dbrx-paged: the paged streams differ from the "
+                           "linear ones")
+    log("[dbrx-paged] greedy streams equal the linear streams token for "
+        "token")
+    del paged
+    _gate_served(torch, "dbrx", out)
+    del out, params
     torch.cuda.empty_cache()
     return counts
 

@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config(name)``."""
 from __future__ import annotations
 
-from repro_torch.configs.archs import DENSE_ARCHS, PAPER_ARCHS
+from repro_torch.configs.archs import DENSE_ARCHS, MOE_ARCHS, PAPER_ARCHS
 from repro_torch.configs.base import ModelConfig
 
-ARCHS: dict[str, ModelConfig] = {**PAPER_ARCHS, **DENSE_ARCHS}
+ARCHS: dict[str, ModelConfig] = {**PAPER_ARCHS, **DENSE_ARCHS, **MOE_ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -14,5 +14,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "DENSE_ARCHS", "ModelConfig", "PAPER_ARCHS",
-           "get_config"]
+__all__ = ["ARCHS", "DENSE_ARCHS", "MOE_ARCHS", "ModelConfig",
+           "PAPER_ARCHS", "get_config"]

@@ -16,6 +16,9 @@ published shapes (the sources in brackets): GQA with G = 3, 5 and 4, MQA
 the port computes them in float32, as it does every arch (its caches and
 its kernels' float operands are float32).  Their training fields are the
 reference's: remat on, and 4, 8, 8 and 2 microbatches.
+
+``MOE_ARCHS`` holds the registry's two MoE entries, qwen3-moe-30b-a3b and
+dbrx-132b, likewise.
 """
 from __future__ import annotations
 
@@ -71,4 +74,27 @@ DENSE_ARCHS: dict[str, ModelConfig] = {
         num_kv_heads=1, head_dim=256, d_ff=16384, vocab_size=256000,
         act="geglu", norm="rmsnorm", rope_theta=10000.0,
         tie_embeddings=True, microbatches=2),
+}
+
+
+# The reference registry's two MoE entries at their published shapes
+# (experts replace the MLP; the router is float).  float32 as every port
+# arch; the training fields are the reference's.
+MOE_ARCHS: dict[str, ModelConfig] = {
+    # [hf:databricks/dbrx-base] 40L d 6144 48H (GQA kv 8) d_ff 10752,
+    # LayerNorm, 16 experts top-4, untied
+    "dbrx-132b": ModelConfig(
+        name="dbrx-132b", family="moe", num_layers=40, d_model=6144,
+        num_heads=48, num_kv_heads=8, head_dim=128, d_ff=10752,
+        vocab_size=100352, act="swiglu", norm="layernorm",
+        rope_theta=500000.0, num_experts=16, top_k=4, capacity_factor=1.25,
+        microbatches=16, opt_state_dtype="bfloat16"),
+    # [hf:Qwen/Qwen3-30B-A3B] 48L d 2048 32H (GQA kv 4) head_dim 128,
+    # 128 experts top-8 of d_ff 768, untied
+    "qwen3-moe-30b-a3b": ModelConfig(
+        name="qwen3-moe-30b-a3b", family="moe", num_layers=48, d_model=2048,
+        num_heads=32, num_kv_heads=4, head_dim=128, d_ff=768,
+        vocab_size=151936, act="swiglu", norm="rmsnorm",
+        rope_theta=1000000.0, num_experts=128, top_k=8,
+        capacity_factor=1.25, microbatches=4),
 }

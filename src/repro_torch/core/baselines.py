@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core.calibration import _copy_tree, _get, _set_path
 from repro_torch.core.quantizer import QuantConfig, _div, fake_quant_weight
-from repro_torch.core.sites import require_dense
+from repro_torch.core.sites import require_ported
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, transformer
 from repro_torch.models.init import layer, stack_layers
@@ -224,7 +224,13 @@ def quantize_model_baseline(params: dict, cfg, qcfg: QuantConfig,
     MSE)}`` of the layer output on the linear's calibration inputs."""
     if method not in METHODS:
         raise ValueError(f"method={method!r}: use one of {METHODS}")
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "the baselines are dense-only, as the reference's whole-model "
+            "drivers are: on an MoE block its RTN leaves the experts float "
+            "and its AWQ / GPTQ read block['mlp'] (KeyError); ROADMAP "
+            "queue 3 records the difference")
     blocks = [layer(params["layers"], i) for i in range(cfg.num_layers)]
     device = params["embed"].device
     tokens = torch.as_tensor(calib_tokens).to(device)
@@ -268,7 +274,7 @@ def quantize_model_baseline(params: dict, cfg, qcfg: QuantConfig,
                     if wkey != "mlp/w_gate" or "w_gate" in bp["mlp"]})
         del caps
         new_blocks.append(nbp)
-        x = transformer.apply_block_full(nbp, x, cfg, positions)
+        x = transformer.apply_block_full(nbp, x, cfg, positions)[0]
         if log:
             logger.info("%s block %d/%d done in %.2f s", method, li + 1,
                         len(blocks), seconds)

@@ -14,15 +14,22 @@ The quantized block computes its effective weights every step::
     Wv_eff    = Q( A1 @ Wv @ blockdiag(inv(A2)) )     (vo producer side)
     Wo_eff    = Q( blockdiag(A2) @ Wo )               (vo consumer side)
     Wg/Wu_eff = Q( A3 @ Wg/Wu ) ;  W_down_eff = Q(W_down)
+    router    = A3 @ router                           (MoE: float, every
+                                                       expert's Wg/Wu too)
 
 and transformed activations ``h_t = (h - delta) @ inv(A1)`` after each norm
 (per-token fake-quantized when activations are quantized).  Everything is
 differentiable (the STE through Q, autograd through the solve), and the
 optimizer is the reference's hand-rolled Adam with per-path learning rates.
 
-The dense family (OPT and llama); the reference's MoE branches are not
-ported (``core/sites.py`` refuses other families).  A no-RoPE (OPT) model
-gets its sinusoidal positions at the embedding (``transformer.embed``).
+The dense (OPT and llama) and MoE families.  An MoE block's experts are
+stacked (E, K, N) leaves: each expert gets its own LWC logits and its own
+grid, the ``ln_mlp`` transform reaches the router and every expert's gate
+and up projections, and the quantized block runs its activation-quantized
+MoE input through ``moe.apply_moe`` (so at a4 calibration quantizes the MoE
+input where packed serving does not: the reference's difference, kept).
+A no-RoPE (OPT) model gets its sinusoidal positions at the embedding
+(``transformer.embed``).
 The reference runs each step under ``jax.jit``, where XLA turns a division
 by a constant into a multiply by its reciprocal; the port divides wherever
 the reference's eager code does, so its step matches the reference called
@@ -46,7 +53,7 @@ from repro_torch.core.quantizer import (QuantConfig, fake_quant_activation,
                                         quantize_codes)
 from repro_torch.core.sites import block_sites, quantized_weights
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, moe, transformer
 from repro_torch.models.init import layer, stack_layers
 
 logger = logging.getLogger(__name__)
@@ -80,7 +87,9 @@ def init_block_quant_params(block_params: dict, cfg, qcfg: QuantConfig,
 
     def diag_init(site_name: str, w_key: str) -> torch.Tensor:
         if act_stats and site_name in act_stats:
-            w_absmax = torch.amax(_get(block_params, w_key).abs(), dim=1)
+            w = _get(block_params, w_key).abs()
+            # stacked experts (E, d_in, d_out): the max over all of them
+            w_absmax = torch.amax(w, dim=(0, 2) if w.ndim == 3 else 1)
             return af.smoothquant_diag(act_stats[site_name], w_absmax)
         return torch.ones((sites[site_name].dim,), dtype=torch.float32,
                           device=device)
@@ -98,7 +107,7 @@ def init_block_quant_params(block_params: dict, cfg, qcfg: QuantConfig,
         if name == "ln_attn":
             init = diag_init(name, "wq")
         elif name == "ln_mlp":
-            init = diag_init(name, "mlp/w_up")
+            init = diag_init(name, f"{_mlp_key(cfg)}/w_up")
         params["affine"][name] = af.init_params(spec, init, device=device)
         used[name] = spec
     params["_sites"] = {n: dataclasses.asdict(s) for n, s in used.items()}
@@ -110,6 +119,10 @@ def init_block_quant_params(block_params: dict, cfg, qcfg: QuantConfig,
                                                    qcfg.group_size,
                                                    device=device)
     return params
+
+
+def _mlp_key(cfg) -> str:
+    return "moe" if cfg.num_experts else "mlp"
 
 
 def _get(tree: dict, path: str):
@@ -205,14 +218,22 @@ def transformed_weights(block_params: dict, qp: dict, cfg,
                 out[bname] = b
 
     mlp_site = "ln_mlp" if "ln_mlp" in specs else None
+    prefix = _mlp_key(cfg)
     for sub in (("w_gate", "w_up", "w_down") if cfg.act in layers.GATED
                 else ("w_up", "w_down")):
-        w = block_params["mlp"][sub]
+        w = block_params[prefix][sub]
         if mlp_site and sub in ("w_gate", "w_up"):
             spec3, a3 = a_of(mlp_site)
+            # (E, d, f) experts: A3 @ each (broadcast over E)
             w = af.transform_weight(spec3, a3, w)
-        out[f"mlp/{sub}"] = w
-    if mlp_site:
+        out[f"{prefix}/{sub}"] = w
+    if cfg.num_experts:
+        out["moe/router"] = block_params["moe"]["router"]
+        if mlp_site:
+            spec3, a3 = a_of(mlp_site)
+            out["moe/router"] = af.transform_weight(spec3, a3,
+                                                    out["moe/router"])
+    elif mlp_site:
         shift3 = qp["affine"][mlp_site].get("shift")
         if shift3 is not None:
             for wn, bn in (("w_gate", "b_gate"), ("w_up", "b_up")):
@@ -273,6 +294,11 @@ def quant_block_forward(block_params: dict, qp: dict, x: torch.Tensor, cfg,
 
     h2 = aq(act_transform(
         layers.apply_norm(block_params["ln_mlp"], x, cfg.norm), "ln_mlp"))
+    if cfg.num_experts:
+        y, _ = moe.apply_moe({k.split("/")[1]: w for k, w in ws.items()
+                              if k.startswith("moe/")}, h2, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor, act=cfg.act)
+        return x + y
 
     def mlin(wn, bn):
         y = h2 @ ws[f"mlp/{wn}"]
@@ -283,7 +309,7 @@ def quant_block_forward(block_params: dict, qp: dict, x: torch.Tensor, cfg,
 
 def fp_block_forward(block_params: dict, x: torch.Tensor, cfg,
                      positions: torch.Tensor) -> torch.Tensor:
-    return transformer.apply_block_full(block_params, x, cfg, positions)
+    return transformer.apply_block_full(block_params, x, cfg, positions)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -502,17 +528,19 @@ def finalize_block(block_params: dict, qp: dict, cfg, qcfg: QuantConfig,
     if "ln_mlp" in specs:
         spec3, a3, a3_inv = site_matrices(qp, "ln_mlp", masks)
         shift3 = qp["affine"]["ln_mlp"].get("shift")
+        prefix = _mlp_key(cfg)
         if spec3.kind == "diagonal":
             _merge_norm(new_bp, "ln_mlp", block_params, a3, shift3)
-            for sub in ("w_gate", "w_up", "b_gate", "b_up"):
-                if f"mlp/{sub}" in ws:
-                    new_bp["mlp"][sub] = ws[f"mlp/{sub}"]
+            for sub in ("w_gate", "w_up", "b_gate", "b_up", "router"):
+                if f"{prefix}/{sub}" in ws:
+                    new_bp[prefix][sub] = ws[f"{prefix}/{sub}"]
         else:
-            for sub in ("w_gate", "w_up"):
-                if f"mlp/{sub}" in ws:
-                    new_bp["mlp"][sub] = eq.fuse_effective_weight(
-                        ws[f"mlp/{sub}"], a3_inv.to(torch.float32))
-        new_bp["mlp"]["w_down"] = ws["mlp/w_down"]
+            # inv(A3) @ Q(A3 W) per expert; the router inv(A3) @ (A3 R)
+            for sub in ("w_gate", "w_up", "router"):
+                if f"{prefix}/{sub}" in ws:
+                    new_bp[prefix][sub] = eq.fuse_effective_weight(
+                        ws[f"{prefix}/{sub}"], a3_inv.to(torch.float32))
+        new_bp[prefix]["w_down"] = ws[f"{prefix}/w_down"]
     return new_bp
 
 

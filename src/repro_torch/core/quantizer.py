@@ -87,18 +87,20 @@ def effective_group_size(d_in: int, group_size: int) -> int:
 
 
 def _to_groups(w: torch.Tensor, group_size: int) -> torch.Tensor:
-    d_in, d_out = w.shape
+    """(..., K, N) -> (..., K // g, g, N) float32."""
+    *lead, d_in, d_out = w.shape
     g = effective_group_size(d_in, group_size)
-    return w.to(torch.float32).reshape(d_in // g, g, d_out)
+    return w.to(torch.float32).reshape(*lead, d_in // g, g, d_out)
 
 
 def init_lwc_params(w_shape: tuple, group_size: int, init_value: float = 4.0,
                     device=None) -> dict:
-    """Per-group clip logits ``gamma`` / ``beta`` (groups, 1, d_out);
+    """Per-group clip logits ``gamma`` / ``beta`` (..., groups, 1, d_out)
+    for a (..., K, N) weight (stacked experts get one set each);
     ``sigmoid(4) ~= 0.982``: almost no clipping to start."""
-    d_in, d_out = w_shape
+    *lead, d_in, d_out = w_shape
     n_groups = d_in // effective_group_size(d_in, group_size)
-    full = lambda: torch.full((n_groups, 1, d_out), init_value,
+    full = lambda: torch.full((*lead, n_groups, 1, d_out), init_value,
                               dtype=torch.float32, device=device)
     return {"gamma": full(), "beta": full()}
 
@@ -106,11 +108,14 @@ def init_lwc_params(w_shape: tuple, group_size: int, init_value: float = 4.0,
 def weight_qparams(w: torch.Tensor, cfg: QuantConfig,
                    lwc: Optional[dict] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-group (scale, zp) of a (K, N) weight, each (groups, 1, N) f32;
-    zp is not rounded yet."""
+    """Per-group (scale, zp) of a (..., K, N) weight, each (..., groups, 1,
+    N) f32, every (K, N) matrix on its own grid (the reference vmaps the
+    quantizer over stacked experts; these are elementwise ops and
+    reductions within one matrix, so the values are the same); zp is not
+    rounded yet."""
     wg = _to_groups(w, cfg.group_size)
-    wmax = torch.amax(wg, dim=1, keepdim=True)
-    wmin = torch.amin(wg, dim=1, keepdim=True)
+    wmax = torch.amax(wg, dim=-2, keepdim=True)
+    wmin = torch.amin(wg, dim=-2, keepdim=True)
     if cfg.lwc and lwc is not None:
         wmax = torch.sigmoid(lwc["gamma"]) * wmax
         wmin = torch.sigmoid(lwc["beta"]) * wmin
@@ -125,8 +130,8 @@ def weight_qparams(w: torch.Tensor, cfg: QuantConfig,
 
 def fake_quant_weight(w: torch.Tensor, cfg: QuantConfig,
                       lwc: Optional[dict] = None) -> torch.Tensor:
-    """Pseudo-quantize a (K, N) weight, differentiable through the STE;
-    same shape and dtype as ``w``."""
+    """Pseudo-quantize a (..., K, N) weight, differentiable through the
+    STE; same shape and dtype as ``w``."""
     if not cfg.quantize_weights:
         return w
     wg = _to_groups(w, cfg.group_size)

@@ -61,7 +61,6 @@ from repro_torch.core.quantizer import QuantConfig
 from repro_torch.data import MarkovCorpus
 from repro_torch.device import resolve_device
 from repro_torch.launch.calibrate import load_float_params
-from repro_torch.models import transformer
 from repro_torch.models.init import init_block, init_lm, init_top, stack_layers
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import Engine, QueueFull, ServeConfig
@@ -342,15 +341,18 @@ def near_greedy(logits: torch.Tensor, tokens: torch.Tensor,
 def packed_and_fake_logits(model: QuantizedModel, params: dict, fake: dict,
                            prompts: list, streams: list
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Logits (B, n, vocab) of the packed tree, teacher-forced on the
-    served tokens, and of the fake-quant tree through the float forward, at
-    the positions that predicted the ``n`` served tokens."""
+    """Logits (B, n, vocab) of the packed tree and of the fake-quant tree
+    through the float model, both teacher-forced on the served tokens by the
+    same calls (the prompt's prefill, then decode steps), at the positions
+    that predicted the ``n`` served tokens.  The same calls give an MoE the
+    same token counts, so its per-call expert capacity drops the same
+    tokens in both."""
     n = min(len(s) for s in streams)
     p = torch.as_tensor(np.stack(prompts), dtype=torch.int32)
     gen = torch.as_tensor([s[:n] for s in streams], dtype=torch.int32)
     packed = teacher_forced(model, params, p, gen, n - 1, p.shape[1] + n)
-    tokens = torch.cat([p, gen[:, :n - 1]], 1).to(model.device)
-    sim = transformer.forward(fake, model.cfg, tokens)[:, p.shape[1] - 1:]
+    sim = teacher_forced(Model(model.cfg, model.device), fake, p, gen, n - 1,
+                         p.shape[1] + n)
     return packed, sim
 
 

@@ -1,9 +1,10 @@
-"""Seeded random initialisation of the dense OPT and llama trunks.
+"""Seeded random initialisation of the OPT, llama and MoE trunks.
 
 Same shapes and scales as the reference (truncated-normal fan-in linears
 cut at two standard deviations, normal(0.02) embeddings, unit norm
 scales, zero LayerNorm biases and qkv biases, a gate weight for the gated
-MLPs only), drawn from an explicit ``torch.Generator``, so
+MLPs only, a std-0.02 router and stacked (E, K, N) experts in place of the
+MLP for MoE), drawn from an explicit ``torch.Generator``, so
 the bits differ from the reference's.  Layer parameters are stacked with a
 leading ``L`` axis; linear weights are (in, out) and apply as ``x @ w``.
 """
@@ -49,11 +50,16 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
          "wk": dense_init(gen, d, hkv * hd, device),
          "wv": dense_init(gen, d, hkv * hd, device),
          "wo": dense_init(gen, hq * hd, d, device),
-         "ln_mlp": init_norm(d, cfg.norm, device),
-         "mlp": {"w_up": dense_init(gen, d, cfg.d_ff, device),
-                 "w_down": dense_init(gen, cfg.d_ff, d, device)}}
-    if cfg.act in GATED:
-        p["mlp"]["w_gate"] = dense_init(gen, d, cfg.d_ff, device)
+         "ln_mlp": init_norm(d, cfg.norm, device)}
+    if cfg.num_experts:
+        from repro_torch.models.moe import init_moe
+        p["moe"] = init_moe(gen, d, cfg.d_ff, cfg.num_experts, cfg.act,
+                            device)
+    else:
+        p["mlp"] = {"w_up": dense_init(gen, d, cfg.d_ff, device),
+                    "w_down": dense_init(gen, cfg.d_ff, d, device)}
+        if cfg.act in GATED:
+            p["mlp"]["w_gate"] = dense_init(gen, d, cfg.d_ff, device)
     if cfg.qkv_bias:
         for name, width in (("bq", hq * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):

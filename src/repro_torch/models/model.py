@@ -1,4 +1,5 @@
-"""The float dense model of the port: ``init``, ``forward``, ``loss``, and
+"""The float dense and MoE model of the port: ``init``, ``forward``,
+``loss`` (with the MoE load-balance term), and
 serving through the Engine (``init_cache`` / ``init_paged_cache`` /
 ``prefill`` / ``prefill_chunk`` / ``decode_step``, from
 :class:`~repro_torch.models.transformer.ServingTrunk`).
@@ -17,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sites import require_dense
+from repro_torch.core.sites import require_ported
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
@@ -37,7 +38,7 @@ class Model(transformer.ServingTrunk):
         object.__setattr__(self, "device", resolve_device(self.device))
         if self.mode not in ops.MODES:
             raise ValueError(f"mode={self.mode!r}: use one of {ops.MODES}")
-        require_dense(self.cfg)
+        require_ported(self.cfg)
 
     def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w

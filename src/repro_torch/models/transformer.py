@@ -1,13 +1,16 @@
-"""The dense trunk: full-sequence block, forward and LM
-loss, the sinusoidal positions of the no-RoPE (OPT) family, and the
-serving half: the decode cache, prefill chunks and decode steps over the
-linear or the paged cache (:class:`ServingTrunk`).
+"""The transformer trunk of the dense and MoE families: full-sequence
+block, forward and LM loss (with the MoE load-balance term), the
+sinusoidal positions of the no-RoPE (OPT) family, and the serving half:
+the decode cache, prefill chunks and decode steps over the linear or the
+paged cache (:class:`ServingTrunk`).
 
 Layer parameters are stacked with a leading ``L`` axis (as
 :func:`repro_torch.models.init.init_lm` builds them); biases are honoured
 by presence (``bq``/``bk``/``bv``, a norm's ``bias``, ``b_gate``/``b_up``),
 since merging a calibrated shifted transform introduces them.  No prefix
-embeddings, no sliding window: the dense archs have neither.
+embeddings, no sliding window: the ported archs have neither.  An MoE
+block (``cfg.num_experts``) holds ``moe`` (router and stacked experts,
+:mod:`repro_torch.models.moe`) where a dense block holds ``mlp``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch.utils.checkpoint
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import KV_BLOCK
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.init import layer
 from repro_torch.serve import kv_cache
 from repro_torch.serve.kv_cache import PagedKVCache, chunk_write_index
@@ -65,8 +68,9 @@ def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def apply_block_full(p: dict, x: torch.Tensor, cfg,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """One full-sequence block (causal attention + MLP, pre-norm)."""
+                     positions: torch.Tensor) -> tuple:
+    """One full-sequence block (causal attention + MLP or MoE, pre-norm).
+    Returns (x, aux): the MoE load-balance loss, 0 for a dense block."""
     h = layers.apply_norm(p["ln_attn"], x, cfg.norm)
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if "bq" in p:
@@ -82,35 +86,50 @@ def apply_block_full(p: dict, x: torch.Tensor, cfg,
     out = attn_lib.attention(q, k, v)
     x = x + out.reshape(b, t, -1) @ p["wo"]
     h2 = layers.apply_norm(p["ln_mlp"], x, cfg.norm)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg.act)
+    if cfg.num_experts:
+        y, aux = moe.apply_moe(p["moe"], h2, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               act=cfg.act)
+        return x + y, aux
+    return (x + layers.apply_mlp(p["mlp"], h2, cfg.act),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (B, T, vocab) of the whole sequence.  With ``cfg.remat`` and
-    autograd on, each block keeps only its input for backward and runs
-    again there (the reference's ``jax.checkpoint`` around the block): the
-    same values and gradients for less activation memory."""
+def forward_with_aux(params: dict, cfg, tokens: torch.Tensor) -> tuple:
+    """(logits (B, T, vocab) of the whole sequence, the load-balance loss
+    summed over layers).  With ``cfg.remat`` and autograd on, each block
+    keeps only its input for backward and runs again there (the
+    reference's ``jax.checkpoint`` around the block): the same values and
+    gradients for less activation memory."""
     x = embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         p = layer(params["layers"], i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux_l = torch.utils.checkpoint.checkpoint(
                 apply_block_full, p, x, cfg, positions, use_reentrant=False)
         else:
-            x = apply_block_full(p, x, cfg, positions)
+            x, aux_l = apply_block_full(p, x, cfg, positions)
+        aux = aux + aux_l
     x = layers.apply_norm(params["ln_f"], x, cfg.norm)
     w = params.get("head")
-    return x @ (w if w is not None else params["embed"].T)
+    return x @ (w if w is not None else params["embed"].T), aux
+
+
+def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Logits (B, T, vocab) of the whole sequence."""
+    return forward_with_aux(params, cfg, tokens)[0]
 
 
 def lm_loss(params: dict, cfg, batch: dict) -> torch.Tensor:
-    """Next-token cross entropy."""
+    """Next-token cross entropy plus ``0.01 *`` the load-balance loss (0
+    for a dense model), as the reference."""
     tokens = batch["tokens"]
-    logits = forward(params, cfg, tokens)
+    logits, aux = forward_with_aux(params, cfg, tokens)
     return layers.cross_entropy(logits[:, :-1], tokens[:, 1:],
-                                batch.get("mask"))
+                                batch.get("mask")) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +414,8 @@ class ServingTrunk:
     def _mlp(self, p, x):
         h = layers.apply_norm(p["ln_mlp"], x, self.cfg.norm)
         h = act_transform(p.get("mlp_t"), h)
+        if self.cfg.num_experts:
+            return self._moe_apply(p["moe"], h)
         mp = p["mlp"]
 
         def lin(wn, bn):
@@ -402,3 +423,13 @@ class ServingTrunk:
             return y + mp[bn] if bn in mp else y
 
         return self._mm(layers.mlp_hidden(lin, self.cfg.act), mp["w_down"])
+
+    def _moe_apply(self, mp: dict, h: torch.Tensor) -> torch.Tensor:
+        """The MoE half on float experts.  Capacity is per call, so
+        which tokens drop depends on the call's token count: padded
+        prefill rows and idle decode rows route too (the reference's
+        approximation for padded and chunked prefill)."""
+        cfg = self.cfg
+        return moe.apply_moe(mp, h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             act=cfg.act)[0]

@@ -1,4 +1,4 @@
-"""Packed low-bit serving of a dense model (the paper's deployment).
+"""Packed low-bit serving of a dense or MoE model (the paper's deployment).
 
 Every linear of the trunk is a :class:`QTensor`.  At ``a_bits < 16`` each
 matmul goes through ``ops.quant_matmul`` (per-token dynamic activation
@@ -19,6 +19,13 @@ A raw float tree is packed on the RTN grid by ``ops.quantize_pack``: the
 ``quantize_pack`` kernel for CUDA weights, one (K, N) matrix at a time,
 and its plain version (byte-equal to ``quantize_codes``) on the CPU.
 
+An MoE block's experts are packed too (the router stays float), one
+(K, N) matrix at a time.  At serving time each expert leaf is dequantized
+from its codes to float32 and the MoE half runs on the float activations
+through the capacity dispatch, at every ``a_bits``: the reference's one
+float-activation site (a quantized grouped-expert kernel is future work
+there).
+
 Quantization conserves poison: a non-finite K/V row (kv4: block) gives a
 NaN scale.
 """
@@ -33,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.quantizer import (QuantConfig, effective_group_size,
                                         quantize_codes)
-from repro_torch.core.sites import require_dense
+from repro_torch.core.sites import require_ported
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import kv4_check_head_dim, kv4_quantize
@@ -45,13 +52,14 @@ PACKED_MLP = ("w_gate", "w_up", "w_down")
 
 
 def rtn_pack(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
-    """A float (K, N) or layer-stacked (L, K, N) weight on the RTN grid as
-    a QTensor, through ``ops.quantize_pack`` one (K, N) matrix at a time.
-    A symmetric grid, which the packer has no input for, goes through
-    ``quantize_codes``, as the reference packs every grid."""
+    """A float (K, N) weight, or one stacked over leading axes (layers,
+    experts), on the RTN grid as a QTensor, through ``ops.quantize_pack``
+    one (K, N) matrix at a time.  A symmetric grid, which the packer has no
+    input for, goes through ``quantize_codes``, as the reference packs
+    every grid."""
     if qcfg.symmetric:
         return quantize_codes(w, qcfg)
-    if w.ndim == 3:
+    if w.ndim > 2:
         return stack_layers([rtn_pack(wi, qcfg) for wi in w])
     g = effective_group_size(w.shape[0], qcfg.group_size)
     packed, scale, zp = ops.quantize_pack(
@@ -60,12 +68,19 @@ def rtn_pack(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
 
 
 def quantize_layers(lp: dict, qcfg: QuantConfig) -> dict:
-    """Packed form of a (stacked) layer tree: QTensor linears on the RTN
-    grid (:func:`rtn_pack`), norms, transforms and biases kept."""
+    """Packed form of a (stacked) layer tree: QTensor linears and experts
+    on the RTN grid (:func:`rtn_pack`), norms, transforms, biases and the
+    router kept."""
     out = {k: lp[k] for k in ("ln_attn", "ln_mlp", "attn_t", "mlp_t",
                               "bq", "bk", "bv") if k in lp}
     for k in PACKED_WEIGHTS:
         out[k] = rtn_pack(lp[k], qcfg)
+    if "moe" in lp:
+        mo = lp["moe"]
+        out["moe"] = {"router": mo["router"]}
+        out["moe"].update({k: rtn_pack(mo[k], qcfg) for k in PACKED_MLP
+                           if k in mo})
+        return out
     mlp = lp["mlp"]
     out["mlp"] = {k: rtn_pack(mlp[k], qcfg) for k in PACKED_MLP if k in mlp}
     out["mlp"].update({k: mlp[k] for k in ("b_gate", "b_up") if k in mlp})
@@ -118,7 +133,7 @@ class QuantizedModel(ServingTrunk):
         cfg, qcfg = self.cfg, self.qcfg
         if self.mode not in ops.MODES:
             raise ValueError(f"mode={self.mode!r}: use one of {ops.MODES}")
-        require_dense(cfg)
+        require_ported(cfg)
         if qcfg.a_bits < 16 and not 2 <= qcfg.a_bits <= 8:
             raise ValueError(f"a_bits={qcfg.a_bits}: use 2..8 or >= 16")
         if qcfg.kv_bits < 16 and qcfg.kv_bits not in (4, 8):
@@ -144,3 +159,12 @@ class QuantizedModel(ServingTrunk):
         (kq, k_s), (vq, v_s) = (_kv_quantize(t, self.qcfg.kv_bits)
                                 for t in (k, v))
         return kq, vq, k_s, v_s
+
+    def _moe_apply(self, mp: dict, h: torch.Tensor) -> torch.Tensor:
+        """The MoE half on packed experts: each expert leaf dequantized
+        from its (single-rounding) codes to float32, the float router and
+        the float activations ``h`` (not activation-quantized, even at
+        a4) through the capacity dispatch."""
+        experts = {k: (v.dequantize() if isinstance(v, QTensor) else v)
+                   for k, v in mp.items()}
+        return super()._moe_apply(experts, h)

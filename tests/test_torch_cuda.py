@@ -1013,3 +1013,81 @@ def test_adam_update_on_the_card_equals_the_cpu(dev):
         out.append(checkpoints.flatten({"p": p, **state}))
     assert int(out[1]["count"][0]) == 3
     _leaves_within(out[1], out[0], 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: qwen3-moe-30b-a3b's narrowest linear and its attention
+# shape, and the MoE layer on the card against its CPU plain path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [4, 70])
+def test_w4a8_matmul_at_the_moe_kv_width(dev, m):
+    """qwen3-moe's k / v projection, 2048 -> 512 (the narrowest N the
+    serving path gives the kernel), bit for bit; rows equal across M."""
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.standard_normal((m, 2048)).astype(
+        np.float32)).to(dev)
+    w = _weight(rng, 2048, 512, 4, 128, dev)
+    got = w4a8_matmul(x, *w, bits=4, group_size=128, a_bits=4)
+    assert torch.equal(got, quant_matmul_plain(x, *w, bits=4, group_size=128,
+                                               a_bits=4))
+    assert torch.equal(w4a8_matmul(x[:4], *w, bits=4, group_size=128,
+                                   a_bits=4), got[:4])
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_attention_kernels_at_the_moe_shape(dev, kv_bits):
+    """Hkv 4, G 8, D 128 (qwen3-moe): decode and a ragged prefill chunk
+    within 1e-5 of the plain versions, over pages of 64 bit for bit equal
+    to the linear kernels on the same contents."""
+    rng = np.random.default_rng(kv_bits)
+    hkv, g, d, ps, c = 4, 8, 128, 64, 20
+    lens = [1, 64, 150, 200]
+    pools, pt, lin = _paged_case(rng, lens, hkv, d, ps, kv_bits, 4, dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    got = flash_decode(q, lin[0], lin[1], cur, *lin[2:])
+    want = flash_decode_plain(q, lin[0], lin[1], cur, *lin[2:], block_kv=64)
+    assert _err(got, want) < 1e-5
+    assert torch.equal(flash_decode_paged(q, pools[0], pools[1], pt, cur,
+                                          *pools[2:]), got)
+    qc = torch.from_numpy(rng.standard_normal((4, hkv, c, g, d)).astype(
+        np.float32)).to(dev)
+    off = torch.tensor([0, 44, 130, 180], dtype=torch.int32, device=dev)
+    cl = cur - off
+    got = flash_prefill(qc, lin[0], lin[1], off, cl, *lin[2:])
+    want = flash_prefill_plain(qc, lin[0], lin[1], off, cl, *lin[2:],
+                               block_kv=64)
+    assert _err(got, want) < 1e-5
+    assert torch.equal(flash_prefill_paged(qc, pools[0], pools[1], pt, off,
+                                           cl, *pools[2:]), got)
+
+
+def test_apply_moe_on_the_card_equals_the_cpu(dev):
+    """512 tokens through 16 experts top-4 (d 256, d_ff 128) on the card
+    and on the CPU: routing flips counted (float32 ``tokens @ router`` sums
+    in another order on each device) and at most 1% of the tokens; with
+    every token kept (capacity factor E / k) the tokens whose experts agree
+    give outputs within 1e-5 of the output's magnitude, and without a flip
+    the load-balance loss too; the card's combine gives the same bits on a
+    second call."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, 256, 128, 16, "swiglu", "cpu")
+    x = torch.randn((4, 128, 256), generator=gen)
+    kw = dict(top_k=4, capacity_factor=4.0, act="swiglu")
+    y_cpu, aux_cpu = moe.apply_moe(p, x, **kw)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    y, aux = moe.apply_moe(pd, x.to(dev), **kw)
+    assert torch.equal(moe.apply_moe(pd, x.to(dev), **kw)[0], y)
+    ids_cpu = torch.sort(moe.route(p["router"], x.reshape(512, -1), 4)[2])[0]
+    ids = torch.sort(moe.route(pd["router"], x.to(dev).reshape(512, -1),
+                               4)[2])[0].cpu()
+    kept = (ids == ids_cpu).all(-1)
+    assert int((~kept).sum()) <= 5, int((~kept).sum())
+    y, y_cpu = y.cpu().reshape(512, -1), y_cpu.reshape(512, -1)
+    err = (y[kept] - y_cpu[kept]).abs().max() / y_cpu.abs().max()
+    assert err < 1e-5, err
+    if kept.all():          # a flip moves the load-balance counts
+        assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * float(aux_cpu)

@@ -236,7 +236,7 @@ def test_float_model_modes_and_build():
     assert sorted(cache) == ["k", "len", "v"]
     assert cache["k"].shape == (2, 2, 16, 4, 32)
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        Model(dataclasses.replace(cfg, family="moe"), "cpu")
+        Model(dataclasses.replace(cfg, family="mamba2"), "cpu")
 
 
 def test_serve_cli_float_compare_and_w3(capsys):

@@ -154,7 +154,7 @@ def test_block_with_merged_biases(setup):
     pos = np.arange(12)[None]
     want, _, _ = jax.jit(lambda b, x: jtransformer.apply_block_full(
         b, x, jcfg, jnp.asarray(pos), 0, 0, False))(jb, jnp.asarray(x))
-    got = transformer.apply_block_full(from_jax_params(_np(jb)), T(x), tcfg,
-                                       T(pos))
+    got, _ = transformer.apply_block_full(from_jax_params(_np(jb)), T(x),
+                                          tcfg, T(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

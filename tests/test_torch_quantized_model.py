@@ -192,7 +192,7 @@ def test_unported_features_raise(setup):
     weights serve: ``test_torch_dense_archs.py``)."""
     tcfg = setup[1]
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        QuantizedModel(dataclasses.replace(tcfg, family="moe"),
+        QuantizedModel(dataclasses.replace(tcfg, family="mamba2"),
                        QuantConfig(), device="cpu")
 
 
