@@ -228,13 +228,39 @@ failure raises (exit code != 0).
    token drops); (e) dbrx-132b W4A4 g128 kv8 at published width, depth
    cut to 4 (LayerNorm, 16 experts top-4, untied head), linear == paged
    and the per-block check.  Each part logs its wall time.
-15. summary.  Every kernel's ``launches`` is the count of the runs above
+15. the recurrent families and the vlm / audio float paths, float32 at
+   published width (seeded init): (a) mamba2-1.3b (48 SSD layers) and (b)
+   recurrentgemma-2b (26 layers: RG-LRU blocks, a 2,048-position window
+   attention block in three) through the Engine on the linear cache,
+   prompts of 128, 128, 96 and 96 tokens (two exact-length prefill
+   groups) and 32 new each, recurrentgemma also one 2,040-token prompt
+   whose ring buffer wraps during decode (its prefill through
+   flash_prefill, its decode through flash_decode over the ring); tok/s,
+   the decode step beside the weights' stream time and peak memory;
+   prefill(T) + one decode step against forward(T + 1), every request's
+   served logits (teacher-forced) against the whole-sequence (windowed)
+   forward within 1e-4 of the largest logit, and every request served
+   alone: both its streams the forward's greedy choice or tied within
+   1e-4; (c) paligemma-3b: 256 seeded prefix embeddings + 128 text tokens
+   prefilled under the prefix-LM mask and 32 decode steps through
+   flash_decode against the forward, then the Engine on text prompts; (d)
+   hubert-xlarge's bidirectional forward and frame loss on 4 x 512 frames
+   against 2 x params x frames / 67 TFLOP/s, its decode paths refused;
+   (e) training mamba2-1.3b and recurrentgemma-2b at depth 2 through
+   launch/train (remat, their microbatches): step time against 6 x params
+   x tokens / 67 TFLOP/s, the loss on the next batch below the init's.
+   Phase 2 also holds flash_decode and flash_prefill at recurrentgemma's
+   attention shape (Hkv 1, G 10, D 256): decode over the wrapped ring of
+   2,048 slots at B 4 and at B 48 (row tiles 4 + 4 + 2), prefill of 128-
+   and 2,040-token chunks.
+16. summary.  Every kernel's ``launches`` is the count of the runs above
    that drive the main path (the startup packing of phases 3, 4, 12 and
    14, phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
-   serving and RTN packing, phase 13's two serving runs and phase 14's
-   serving runs for the seven serving-path kernels, phase 7 for the int8
-   pair), never of the comparisons of phases 2, 8-14 or of phase 7's
-   repack check (its quantize_pack calls are gated there, not counted).
+   serving and RTN packing, phase 13's two serving runs, phase 14's
+   serving runs and phase 15's Engine runs and paligemma decode for the
+   seven serving-path kernels, phase 7 for the int8 pair), never of the
+   comparisons of phases 2, 8-15 or of phase 7's repack check (its
+   quantize_pack calls are gated there, not counted).
    Every phase logs its wall time.
 
 Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
@@ -411,6 +437,7 @@ def main() -> None:
     check_paged_kernels(torch, timer, results)
     check_int8_kernels(torch, timer, results)
     check_quantize_pack(torch, timer, results)
+    check_griffin_attention(torch, timer, results)
     del timer
     torch.cuda.empty_cache()
 
@@ -461,7 +488,10 @@ def main() -> None:
     # ---- 14. the MoE family ------------------------------------------------
     phases.append(moe_phase(torch))
 
-    # ---- 15. summary -------------------------------------------------------
+    # ---- 15. the recurrent families, the vlm and audio float paths --------
+    phases.append(recurrent_phase(torch))
+
+    # ---- 16. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -778,6 +808,81 @@ def check_kernels(torch, timer, results) -> None:
     check_chunk_split(torch, "flash_prefill", gen, lambda kv, o, n, qq:
                       fp.flash_prefill(qq, kv[0], kv[1], o, n, kv[2], kv[3]),
                       lambda kv_bits: cache(32, kv_bits))
+
+
+# recurrentgemma-2b's local attention: MQA with 10 query heads of 256
+GRIFFIN_ATTN = (256, 10, 1)               # (D, G, Hkv)
+
+
+def check_griffin_attention(torch, timer, results) -> None:
+    """flash_decode and flash_prefill at recurrentgemma's shape (Hkv 1, G
+    10, D 256, kv16), each against its plain version: decode at B 4 over a
+    512-position cache, over the wrapped 2,048-slot ring (every slot
+    valid), and at B 48 over the ring with ragged lengths (B 48 is where
+    the kernel's row tiles become 4 + 4 + 2); prefill of a 128-token chunk
+    at B 4 and of the Engine's whole 2,040-token prompt at B 1."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dev = "cuda"
+    hd, gq, hkv = GRIFFIN_ATTN
+    for b, s, lens in ((4, 512, (144,) * 4), (4, 2048, (2048,) * 4),
+                       (48, 2048, (2048, 1000, 144, 1) * 12)):
+        kv = kv_cache_tensors(torch, gen, (b, s), hkv, hd, 16)
+        q = torch.randn((b, hkv, gq, hd), generator=gen, device=dev)
+        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+        want = fd.flash_decode_plain(q, kv[0], kv[1], cur, block_kv=512)
+        got = fd.flash_decode(q, kv[0], kv[1], cur)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-5 * max(want.abs().max().item(), 1.0)
+        kt, vt = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+        qt = q.reshape(b, hkv * gq, 1, hd)
+        mask = (torch.arange(s, device=dev)[None, :]
+                < cur[:, None])[:, None, None, :]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        total = int(sum(lens))
+        nbytes = total * kv_token_bytes(16, hkv, hd) + 2 * q.numel() * 4 + 4 * b
+        bms, by = bound(nbytes, 4 * hd * gq * hkv * total, FP32_OPS_PER_S)
+        ring = " (the wrapped ring)" if s == 2048 else ""
+        case = (f"B={b} S={s}{ring} Hkv={hkv} G={gq} D={hd} kv16 "
+                f"cur_len={list(lens[:4])}{'...' if b > 4 else ''}")
+        _record(results, "flash_decode", case, err, tol,
+                timer(lambda: fd.flash_decode(q, kv[0], kv[1], cur)),
+                timer(lambda: fd.flash_decode_plain(q, kv[0], kv[1], cur,
+                                                    block_kv=512), reps=5),
+                lib_ms, bms, by, "src/repro/kernels/flash_decode.py:129",
+                False)
+        del kv, q, kt, vt
+    for b, c in ((4, 128), (1, 2040)):
+        k, v = (torch.randn((b, c, hkv, hd), generator=gen, device=dev)
+                for _ in range(2))
+        q = torch.randn((b, hkv, c, gq, hd), generator=gen, device=dev)
+        off = torch.zeros((b,), dtype=torch.int32, device=dev)
+        cl = off + c
+        want = fp.flash_prefill_plain(q, k, v, off, cl, block_kv=c)
+        got = fp.flash_prefill(q, k, v, off, cl)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-5 * max(want.abs().max().item(), 1.0)
+        qt = q.permute(0, 1, 3, 2, 4).reshape(b, hkv * gq, c, hd)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        attended = b * c * (c + 1) // 2
+        nbytes = b * c * kv_token_bytes(16, hkv, hd) + 2 * q.numel() * 4 + 8 * b
+        bms, by = bound(nbytes, 4 * hd * gq * hkv * attended, FP32_OPS_PER_S)
+        case = (f"B={b} C={c} S={c} Hkv={hkv} G={gq} D={hd} kv16 "
+                f"offset=[0] chunk_len=[{c}]")
+        _record(results, "flash_prefill", case, err, tol,
+                timer(lambda: fp.flash_prefill(q, k, v, off, cl)),
+                timer(lambda: fp.flash_prefill_plain(q, k, v, off, cl,
+                                                     block_kv=c), reps=5),
+                lib_ms, bms, by, "src/repro/kernels/flash_prefill.py:143",
+                False)
+        del k, v, q, kt, vt
 
 
 def check_chunk_split(torch, name, gen, call, make_cache) -> None:
@@ -3519,6 +3624,396 @@ def dbrx_serve(torch, card) -> dict:
     del out, params
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# 15. the recurrent families, and the vlm / audio float paths
+# ---------------------------------------------------------------------------
+
+REC_ARCHS = ("mamba2-1.3b", "recurrentgemma-2b")   # published width and depth
+VLM_ARCH = "paligemma-3b"
+AUDIO_ARCH = "hubert-xlarge"
+REC_PROMPTS = (128, 128, 96, 96)   # two exact-length prefill groups
+REC_NEW = 32
+RING_PROMPT = 2040        # griffin: + 32 new tokens wraps its 2,048-slot ring
+REC_TOL = 1e-4            # logits, as a share of the largest logit
+VLM_TEXT = 128
+AUDIO_FRAMES = (4, 512)
+REC_TRAIN_LAYERS = 2      # depth cut: the 16 B a parameter of training
+REC_TRAIN_STEPS = 10
+REC_DEVICE = "cuda"       # "cpu" rehearses the phase with reduced configs
+
+
+def recurrent_phase(torch) -> dict:
+    """Phase 15 (see the module docstring); returns its launch counts."""
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    counts = {name: 0 for name in KERNELS}
+    for arch in REC_ARCHS:
+        t0 = time.perf_counter()
+        _add(counts, rec_serve(torch, arch, card))
+        log(f"[rec] {arch} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _add(counts, vlm_serve(torch, card))
+    log(f"[vlm] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    audio_forward(torch, card)
+    log(f"[audio] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec_train(torch, card)
+    log(f"[rec-train] {time.perf_counter() - t0:.1f} s")
+    log(f"[rec] phase 15 wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}; {card}")
+    return counts
+
+
+def _float_model(torch, arch: str, tag: str, card: str) -> tuple:
+    """(cfg, model, params, weight bytes): the seeded float init at
+    published width and depth, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, REC_DEVICE)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[{tag}] {arch} x{cfg.num_layers} ({cfg.family}): d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}; {n} parameters "
+        f"({cfg.param_count()} by the config's formula), "
+        f"{nbytes / 1e9:.2f} GB of float32; seeded init "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    return cfg, model, params, nbytes
+
+
+def _run_engine(torch, model, params, prompts, max_len, counts) -> tuple:
+    """Submit ``prompts`` through the Engine's entry points and step it
+    dry, launches counted into ``counts``; returns (requests, seconds,
+    per-step seconds, engine).  Every request must complete with REC_NEW
+    tokens."""
+    from repro_torch.serve.engine import Engine, RequestStatus, ServeConfig
+    eng = Engine(model, params, ServeConfig(max_batch=4, max_len=max_len,
+                                            max_new=REC_NEW))
+    steps = []
+    with counted(counts):
+        reqs = [eng.submit(p) for p in prompts]
+        t_start = t = time.perf_counter()
+        while eng.step():
+            now = time.perf_counter()
+            steps.append(now - t)
+            t = now
+    if not all(r.status is RequestStatus.COMPLETED
+               and len(r.out_tokens) == REC_NEW for r in reqs):
+        raise RuntimeError(f"{model.cfg.name}: a request did not complete "
+                           f"with {REC_NEW} tokens")
+    return reqs, t - t_start, steps, eng
+
+
+def _served_vs_forward(torch, tag, model, params, prompt, stream,
+                       max_len) -> tuple:
+    """One request: the serving path teacher-forced on its stream (prefill,
+    then decode steps) against the whole-sequence forward over prompt +
+    stream, at the positions that predicted the stream.  Returns (max
+    |dlogit| / max |logit|, share of served tokens that are the forward's
+    greedy choice or tie it within REC_TOL)."""
+    from repro_torch.launch.serve import near_greedy, teacher_forced
+    p = torch.as_tensor(prompt, dtype=torch.int32)[None]
+    g = torch.as_tensor(stream, dtype=torch.int32)[None]
+    served = teacher_forced(model, params, p, g, g.shape[1] - 1, max_len)
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": torch.cat(
+            [p, g[:, :-1]], 1)})[:, p.shape[1] - 1:]
+    rel = ((served - full).abs().max() / full.abs().max()).item()
+    near = near_greedy(full, g, REC_TOL)
+    if not (torch.isfinite(served).all() and rel <= REC_TOL):
+        raise RuntimeError(f"{tag}: served logits differ from the "
+                           f"whole-sequence forward by {rel:.3e}")
+    return rel, near
+
+
+def rec_serve(torch, arch: str, card: str) -> dict:
+    """(a) mamba2-1.3b / (b) recurrentgemma-2b through the Engine on the
+    linear cache (exact-length prefill groups; griffin's extra 2,040-token
+    request wraps its ring during decode): tok/s, the decode step against
+    the weights' stream time, peak memory; prefill(T) + one decode step
+    against forward(T + 1); every request's served logits against the
+    whole-sequence (windowed) forward, and its stream served alone against
+    the batched one under that contract."""
+    import numpy as np
+    from repro_torch.launch.serve import agreement
+    tag = arch.split("-")[0]
+    cfg, model, params, wbytes = _float_model(torch, arch, tag, card)
+    griffin = cfg.family == "griffin"
+    rng = np.random.default_rng(0)
+    lens = REC_PROMPTS + ((RING_PROMPT,) if griffin else ())
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    max_len = max(lens) + REC_NEW + 8
+    counts = {name: 0 for name in KERNELS}
+    torch.cuda.reset_peak_memory_stats()
+    reqs, secs, steps, eng = _run_engine(torch, model, params, prompts,
+                                         max_len, counts)
+    peak = torch.cuda.max_memory_allocated()
+    gen = sum(len(r.out_tokens) for r in reqs)
+    med = statistics.median(steps[1:])
+    b_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] Engine, linear cache, max_batch 4, prompts {list(lens)}, "
+        f"{REC_NEW} new each: {gen} tokens in {secs:.3f} s = "
+        f"{gen / secs:.1f} tok/s (prefill included); first step "
+        f"{steps[0]:.4f} s; decode step median {med * 1e3:.2f} ms over "
+        f"{len(steps) - 1} steps against the weights' stream time "
+        f"{b_ms:.3f} ms at 3.35 TB/s ({b_ms / (med * 1e3):.3f} of it); "
+        f"peak memory {peak / 2**30:.2f} GiB; cache bytes (states, ring) "
+        f"{eng.memory_report()['kv_bytes']}; launches {counts}; {card}")
+    del eng
+    if griffin:
+        require_launched(counts, ("flash_prefill", "flash_decode"), tag)
+        log(f"[{tag}] the {RING_PROMPT}-token request decoded positions "
+            f"{RING_PROMPT}..{RING_PROMPT + REC_NEW - 2}: its "
+            f"{min(max_len, cfg.window)}-slot ring wrapped after "
+            f"{cfg.window - RING_PROMPT} of them")
+    # prefill(T) + one decode step against forward(T + 1)
+    p2 = torch.from_numpy(np.stack(prompts[:2]))
+    g0 = torch.tensor([[r.out_tokens[0]] for r in reqs[:2]],
+                      dtype=torch.int32)
+    with torch.no_grad():
+        lg_p, cache = model.prefill(params, {"tokens": p2}, max_len)
+        lg_d, _ = model.decode_step(params, g0, cache)
+        full = model.forward(params, {"tokens": torch.cat([p2, g0], 1)})
+    t = p2.shape[1]
+    rel = max(((lg - full[:, i:i + 1]).abs().max()
+               / full.abs().max()).item()
+              for lg, i in ((lg_p, t - 1), (lg_d, t)))
+    log(f"[{tag}] prefill({t}) + decode vs forward({t + 1}) at B 2: max "
+        f"|dlogit| / max |logit| {rel:.3e} (tol {REC_TOL:.0e})")
+    if not rel <= REC_TOL:
+        raise RuntimeError(f"{tag}: prefill + decode differ from forward")
+    del cache, full, lg_p, lg_d
+    # every request: served logits vs the forward, alone vs batched
+    worst, alones = 0.0, []
+    for i, (p, r) in enumerate(zip(prompts, reqs)):
+        batched = list(r.out_tokens)
+        rel, near = _served_vs_forward(torch, tag, model, params, p,
+                                       batched, max_len)
+        worst = max(worst, rel)
+        alone = list(_run_engine(torch, model, params, [p], max_len,
+                                 counts)[0][0].out_tokens)
+        alones.append(alone)
+        near_a = near if alone == batched else _served_vs_forward(
+            torch, tag, model, params, p, alone, max_len)[1]
+        if not (near == 1.0 and near_a == 1.0):
+            raise RuntimeError(f"{tag}: request {i}'s batched or alone "
+                               f"stream is not the forward's greedy choice "
+                               f"within {REC_TOL:.0e}")
+    log(f"[{tag}] served logits (prefill + {REC_NEW - 1} decode steps, "
+        f"teacher-forced) vs the whole-sequence forward: max |dlogit| / "
+        f"max |logit| {worst:.3e} over {len(reqs)} requests (tol "
+        f"{REC_TOL:.0e}); every batched and alone stream's tokens are the "
+        f"forward's greedy choice or tie it; "
+        f"{sum(a == list(r.out_tokens) for a, r in zip(alones, reqs))} of "
+        f"{len(reqs)} streams served alone equal the batched ones (token "
+        f"agreement {agreement([list(r.out_tokens) for r in reqs], alones):.4f})")
+    del params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vlm_serve(torch, card) -> dict:
+    """(c) paligemma-3b: Model.prefill over 256 seeded prefix embeddings
+    and 128 text tokens (the prefix-LM mask, plain attention) at B 2, then
+    REC_NEW greedy decode steps through flash_decode, against the forward
+    over prefix + text + tokens; then the Engine on text-only prompts
+    (flash_prefill, flash_decode)."""
+    import numpy as np
+    from repro_torch.launch.serve import near_greedy
+    cfg, model, params, wbytes = _float_model(torch, VLM_ARCH, "vlm", card)
+    rng = np.random.default_rng(0)
+    b, pn = 2, cfg.num_prefix
+    prefix = torch.from_numpy((0.02 * rng.standard_normal(
+        (b, pn, cfg.d_model))).astype(np.float32)).to(REC_DEVICE)
+    text = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, VLM_TEXT)
+                                         ).astype(np.int32))
+    counts = {name: 0 for name in KERNELS}
+    c = {name: 0 for name in KERNELS}
+    toks, seq, dec_s = [], [], []
+    with counted(c), torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, {"tokens": text,
+                                           "prefix_embeds": prefix},
+                                  pn + VLM_TEXT + REC_NEW)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        seq.append(lg)
+        for _ in range(REC_NEW):
+            tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, tok, cache)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+            seq.append(lg)
+    _add(counts, c)
+    if c["flash_decode"] != REC_NEW * cfg.num_layers:
+        raise RuntimeError(f"vlm: {c['flash_decode']} flash_decode launches, "
+                           f"not one a layer and step")
+    gen = torch.cat(toks, 1)
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": torch.cat([text, gen.cpu()],
+                                                          1),
+                                      "prefix_embeds": prefix})
+    full = full[:, pn + VLM_TEXT - 1:]
+    served = torch.cat(seq, 1)
+    rel = ((served - full).abs().max() / full.abs().max()).item()
+    med = statistics.median(dec_s)
+    b_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[vlm] prefix {pn} + text {VLM_TEXT} prefilled at B {b} in "
+        f"{pre_s:.4f} s (prefix-LM mask: plain attention); {REC_NEW} decode "
+        f"steps through flash_decode, median {med * 1e3:.2f} ms against the "
+        f"weights' stream time {b_ms:.3f} ms ({b_ms / (med * 1e3):.3f} of "
+        f"it); served logits vs forward(prefix + text + tokens): max "
+        f"|dlogit| / max |logit| {rel:.3e} (tol {REC_TOL:.0e}); launches "
+        f"{c}")
+    if not (torch.isfinite(served).all() and rel <= REC_TOL):
+        raise RuntimeError("vlm: prefill with a prefix + decode differ from "
+                           "the forward")
+    del cache, full, served, seq, prefix
+    # the Engine on text-only prompts
+    prompts = [rng.integers(0, cfg.vocab_size, VLM_TEXT).astype(np.int32)
+               for _ in range(4)]
+    c = {name: 0 for name in KERNELS}
+    torch.cuda.reset_peak_memory_stats()
+    reqs, secs, steps, _ = _run_engine(torch, model, params, prompts, 256,
+                                       c)
+    _add(counts, c)
+    require_launched(c, ("flash_prefill", "flash_decode"), "vlm-engine")
+    n = sum(len(r.out_tokens) for r in reqs)
+    rel, near = _served_vs_forward(torch, "vlm-engine", model, params,
+                                   prompts[0], reqs[0].out_tokens, 256)
+    log(f"[vlm-engine] 4 text prompts of {VLM_TEXT}, {REC_NEW} new: {n} "
+        f"tokens in {secs:.3f} s = {n / secs:.1f} tok/s; decode step median "
+        f"{statistics.median(steps[1:]) * 1e3:.2f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; request 0's "
+        f"served logits vs the forward {rel:.3e}, served tokens greedy or "
+        f"tied {near:.4f} (gate 1.0); launches {c}")
+    if near != 1.0:
+        raise RuntimeError("vlm-engine: a served token is not the forward's "
+                           "greedy choice")
+    del params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def audio_forward(torch, card) -> None:
+    """(d) hubert-xlarge: forward and frame loss on AUDIO_FRAMES seeded
+    frame embeddings (bidirectional: the first frame's logits must move
+    when the last frame does), timed against 2 x params x frames / 67
+    TFLOP/s; decode and the serve CLI refused."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import ENCODER_ONLY
+    cfg, model, params, _ = _float_model(torch, AUDIO_ARCH, "audio", card)
+    gen = torch.Generator(device=REC_DEVICE).manual_seed(0)
+    b, t = AUDIO_FRAMES
+    emb = torch.randn((b, t, cfg.d_model), generator=gen, device=REC_DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                           device=REC_DEVICE, dtype=torch.int32)
+    times = []
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model.forward(params, {"embeds": emb})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        loss = float(model.loss(params, {"embeds": emb, "labels": labels}))
+        moved = emb.clone()
+        moved[:, -1] = torch.randn(moved[:, -1].shape, generator=gen,
+                                   device=REC_DEVICE)
+        d0 = ((model.forward(params, {"embeds": moved})[:, 0]
+               - logits[:, 0]).abs().max() / logits.abs().max()).item()
+    med = statistics.median(times[1:])
+    bms = 2 * cfg.param_count() * b * t / FP32_OPS_PER_S * 1e3
+    log(f"[audio] forward over {b} x {t} frames: median {med * 1e3:.2f} ms "
+        f"against 2 x params x frames / 67 TFLOP/s = {bms:.2f} ms "
+        f"({bms / (med * 1e3):.3f} of it); frame loss {loss:.4f} (ln "
+        f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}); a new last "
+        f"frame moves the first frame's logits by {d0:.3e} of the largest "
+        f"(gate > 1e-4: bidirectional); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (logits.shape == (b, t, cfg.vocab_size)
+            and torch.isfinite(logits).all() and math.isfinite(loss)
+            and d0 > 1e-4):
+        raise RuntimeError("audio: the forward is not a finite "
+                           "bidirectional encoder output")
+    refused = 0
+    for call in (lambda: model.prefill(params, {"tokens": labels}, 8),
+                 lambda: model.decode_step(params, labels[:, :1], {}),
+                 lambda: serve.build_model(serve.build_parser().parse_args(
+                     ["--arch", AUDIO_ARCH, "--fp", "--device",
+                      REC_DEVICE]))):
+        try:
+            call()
+        except ValueError as e:
+            refused += ENCODER_ONLY in str(e)
+    log(f"[audio] prefill, decode_step and the serve CLI refused: {refused} "
+        f"of 3 ({ENCODER_ONLY!r})")
+    if refused != 3:
+        raise RuntimeError("audio: a decode path was not refused")
+    del params, model, logits
+    torch.cuda.empty_cache()
+
+
+def rec_train(torch, card) -> None:
+    """(e) mamba2-1.3b and recurrentgemma-2b at published width, depth cut
+    to REC_TRAIN_LAYERS, REC_TRAIN_STEPS steps of 16 x 128 tokens through
+    launch/train (remat per block, the configs' microbatches, no
+    checkpoints): step time against 6 x params x tokens / 67 TFLOP/s,
+    tokens/s, peak memory; the loss on the batch after the last step must
+    fall below the seeded init's loss on that batch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus, make_batch_fn
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    for arch in REC_ARCHS:
+        tag = f"{arch.split('-')[0]}-train"
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=REC_TRAIN_LAYERS)
+        model = Model(cfg, REC_DEVICE)
+        held = make_batch_fn(MarkovCorpus(vocab=cfg.vocab_size, seed=0), 16,
+                             128)(REC_TRAIN_STEPS)["tokens"]
+        with torch.no_grad():
+            params = model.init(0)
+            loss0 = float(model.loss(params, {"tokens": held}))
+        del params, model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        args = train.build_parser().parse_args(
+            ["--arch", arch, "--layers", str(REC_TRAIN_LAYERS), "--steps",
+             str(REC_TRAIN_STEPS), "--global-batch", "16", "--seq", "128",
+             "--lr", "1e-3", "--ckpt-dir", "", "--seed", "0", "--device",
+             REC_DEVICE])
+        out = train.train(args)
+        hist = out["history"]
+        cfg = out["cfg"]
+        _train_log(tag, hist, cfg, 16 * 128,
+                   torch.cuda.max_memory_allocated(), card)
+        losses = [h[1] for h in hist]
+        log(f"[{tag}] remat {cfg.remat}, microbatches {cfg.microbatches}; "
+            f"losses {[round(x, 4) for x in losses]}; on the batch after the "
+            f"last step: seeded init {loss0:.4f}, trained "
+            f"{out['final_loss']:.4f}")
+        if not (all(map(math.isfinite, losses))
+                and out["final_loss"] < loss0):
+            raise RuntimeError(f"{tag}: the loss did not fall")
+        del out
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Architecture registry of the port: ``get_config(name)``."""
 from __future__ import annotations
 
-from repro_torch.configs.archs import DENSE_ARCHS, MOE_ARCHS, PAPER_ARCHS
+from repro_torch.configs.archs import (DENSE_ARCHS, MOE_ARCHS, OTHER_ARCHS,
+                                      PAPER_ARCHS)
 from repro_torch.configs.base import ModelConfig
 
-ARCHS: dict[str, ModelConfig] = {**PAPER_ARCHS, **DENSE_ARCHS, **MOE_ARCHS}
+ARCHS: dict[str, ModelConfig] = {**PAPER_ARCHS, **DENSE_ARCHS, **MOE_ARCHS,
+                                  **OTHER_ARCHS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -15,4 +17,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "DENSE_ARCHS", "MOE_ARCHS", "ModelConfig",
-           "PAPER_ARCHS", "get_config"]
+           "OTHER_ARCHS", "PAPER_ARCHS", "get_config"]

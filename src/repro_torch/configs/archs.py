@@ -18,7 +18,11 @@ its kernels' float operands are float32).  Their training fields are the
 reference's: remat on, and 4, 8, 8 and 2 microbatches.
 
 ``MOE_ARCHS`` holds the registry's two MoE entries, qwen3-moe-30b-a3b and
-dbrx-132b, likewise.
+dbrx-132b, likewise, and ``OTHER_ARCHS`` its four other families: the
+attention-free mamba2 (SSD), the recurrentgemma hybrid (RG-LRU blocks with
+one sliding-window attention block in three), the paligemma VLM (a gemma
+trunk behind 256 prefix-LM image slots) and the hubert encoder
+(bidirectional, frame embeddings in, frame labels out).
 """
 from __future__ import annotations
 
@@ -97,4 +101,41 @@ MOE_ARCHS: dict[str, ModelConfig] = {
         vocab_size=151936, act="swiglu", norm="rmsnorm",
         rope_theta=1000000.0, num_experts=128, top_k=8,
         capacity_factor=1.25, microbatches=4),
+}
+
+
+# The registry's other families at their published shapes.  Their
+# frontends are stubs, as in the reference: a VLM's image patches and an
+# audio model's frames arrive as embeddings.
+OTHER_ARCHS: dict[str, ModelConfig] = {
+    # [arXiv:2405.21060] 48L d 2048 (attention-free) vocab 50280, SSD
+    # state 128, 64 heads of 64, tied
+    "mamba2-1.3b": ModelConfig(
+        name="mamba2-1.3b", family="mamba2", num_layers=48, d_model=2048,
+        num_heads=0, num_kv_heads=0, d_ff=0, vocab_size=50280,
+        ssm_state=128, ssm_expand=2, ssm_headdim=64, ssm_ngroups=1,
+        conv_width=4, ssm_chunk=256, tie_embeddings=True, microbatches=8),
+    # [arXiv:2402.19427; hf] 26L d 2560 10H (MQA) head_dim 256 d_ff 7680,
+    # RG-LRU + local attention 2:1, window 2048, GeGLU, tied
+    "recurrentgemma-2b": ModelConfig(
+        name="recurrentgemma-2b", family="griffin", num_layers=26,
+        d_model=2560, num_heads=10, num_kv_heads=1, head_dim=256,
+        d_ff=7680, vocab_size=256000, act="geglu", norm="rmsnorm",
+        rope_theta=10000.0, tie_embeddings=True, window=2048,
+        attn_every=3, rnn_width=2560, conv_width=4, microbatches=4),
+    # [arXiv:2407.07726; hf] SigLIP + gemma: 18L d 2048 8H (MQA) head_dim
+    # 256 d_ff 16384 vocab 257216, 256 prefix slots, GeGLU, tied
+    "paligemma-3b": ModelConfig(
+        name="paligemma-3b", family="vlm", num_layers=18, d_model=2048,
+        num_heads=8, num_kv_heads=1, head_dim=256, d_ff=16384,
+        vocab_size=257216, act="geglu", norm="rmsnorm", rope_theta=10000.0,
+        tie_embeddings=True, num_prefix=256, frontend_stub=True,
+        microbatches=2),
+    # [arXiv:2106.07447] encoder-only: 48L d 1280 16H head_dim 80 d_ff
+    # 5120, 504 frame classes, GELU, LayerNorm, sinusoidal positions
+    "hubert-xlarge": ModelConfig(
+        name="hubert-xlarge", family="audio", num_layers=48, d_model=1280,
+        num_heads=16, num_kv_heads=16, head_dim=80, d_ff=5120,
+        vocab_size=504, act="gelu", norm="layernorm", rope_theta=0.0,
+        causal=False, frontend_stub=True, microbatches=4),
 }

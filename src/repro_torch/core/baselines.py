@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core.calibration import _copy_tree, _get, _set_path
 from repro_torch.core.quantizer import QuantConfig, _div, fake_quant_weight
-from repro_torch.core.sites import require_ported
+from repro_torch.core.sites import require_quantizable
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, transformer
 from repro_torch.models.init import layer, stack_layers
@@ -224,7 +224,7 @@ def quantize_model_baseline(params: dict, cfg, qcfg: QuantConfig,
     MSE)}`` of the layer output on the linear's calibration inputs."""
     if method not in METHODS:
         raise ValueError(f"method={method!r}: use one of {METHODS}")
-    require_ported(cfg)
+    require_quantizable(cfg)
     if cfg.num_experts:
         raise NotImplementedError(
             "the baselines are dense-only, as the reference's whole-model "

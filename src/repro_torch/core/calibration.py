@@ -51,7 +51,8 @@ from repro_torch.core import gradual_mask as gm
 from repro_torch.core.quantizer import (QuantConfig, fake_quant_activation,
                                         fake_quant_weight, init_lwc_params,
                                         quantize_codes)
-from repro_torch.core.sites import block_sites, quantized_weights
+from repro_torch.core.sites import (block_sites, quantized_weights,
+                                    require_quantizable)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, moe, transformer
 from repro_torch.models.init import layer, stack_layers
@@ -419,6 +420,7 @@ def quantize_dense_model(params: dict, cfg, qcfg: QuantConfig,
     ``QuantizedModel`` with no re-quantization.  Returns (new_params, info)
     with ``block_losses``, ``final_losses``, ``block_qps`` and every step's
     wall time in ``step_seconds``."""
+    require_quantizable(cfg)
     blocks = _unstack_layers(params, cfg)
     device = params["embed"].device
     calib_tokens = torch.as_tensor(calib_tokens).to(device)
@@ -474,6 +476,7 @@ def finalize_model(params: dict, block_qps: list, cfg, qcfg: QuantConfig,
     """Re-finalize calibrated parameters (``info["block_qps"]``) under
     another deployment without re-running calibration; ``ccfg`` must be the
     config calibration ran with (the GM epoch enters the transform)."""
+    require_quantizable(cfg)
     return _stack_layers(params, [
         finalize_block(bp, qp, cfg, qcfg, ccfg, deploy=deploy)
         for bp, qp in zip(_unstack_layers(params, cfg), block_qps)])

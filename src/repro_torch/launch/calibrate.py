@@ -40,6 +40,7 @@ from repro_torch.core.baselines import METHODS, quantize_model_baseline
 from repro_torch.core.calibration import (CalibConfig, finalize_model,
                                           quantize_dense_model)
 from repro_torch.core.quantizer import QuantConfig
+from repro_torch.core.sites import require_quantizable
 from repro_torch.data import MarkovCorpus
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
@@ -79,9 +80,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def load_float_params(ckpt: str, cfg, qcfg: QuantConfig, device) -> dict:
     """A float tree from a checkpoint; a reference ``TrainState`` (params,
-    opt, step) flattens to the indices 0, 1, 2 and gives its params."""
+    opt, step) flattens to the indices 0, 1, 2 and gives its params.  A
+    griffin tree's layers, stored by index, become its list again."""
     tree = checkpoints.load_tree(ckpt, cfg, qcfg, device=device)
-    return tree["0"] if "embed" not in tree and "0" in tree else tree
+    tree = tree["0"] if "embed" not in tree and "0" in tree else tree
+    if cfg.family == "griffin":
+        tree["layers"] = [tree["layers"][str(i)]
+                          for i in range(len(tree["layers"]))]
+    return tree
 
 
 @torch.no_grad()
@@ -100,6 +106,7 @@ def calibrate(args: argparse.Namespace, params=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
+    require_quantizable(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     baseline = args.method in METHODS

@@ -42,6 +42,13 @@ which draws the floats ``random_packed_lm`` packs, or ``--ckpt``) through
 from it, and prints the reference's greedy-agreement lines: fp vs packed,
 and with ``--calibrate`` also the fake-quant tree served through ``Model``
 (fp vs quant, quant vs packed).  Both hold the whole float tree in memory.
+
+The registry's other families serve through ``--fp`` only:
+``--arch mamba2-1.3b`` and ``recurrentgemma-2b`` (prompts prefilled at
+their exact lengths, the recurrent states and griffin's attention ring
+buffer in the linear cache) and ``paligemma-3b`` (text prompts, no image
+prefix).  ``hubert-xlarge`` is an encoder and has no decode path; the
+packed path refuses all four (``core/sites.py``).
 """
 from __future__ import annotations
 
@@ -58,11 +65,12 @@ from repro_torch.configs import get_config
 from repro_torch.core.calibration import (CalibConfig, finalize_model,
                                           quantize_dense_model)
 from repro_torch.core.quantizer import QuantConfig
+from repro_torch.core.sites import require_quantizable
 from repro_torch.data import MarkovCorpus
 from repro_torch.device import resolve_device
 from repro_torch.launch.calibrate import load_float_params
 from repro_torch.models.init import init_block, init_lm, init_top, stack_layers
-from repro_torch.models.model import Model
+from repro_torch.models.model import ENCODER_ONLY, Model
 from repro_torch.serve.engine import Engine, QueueFull, ServeConfig
 from repro_torch.serve.kv_cache import pages_for
 from repro_torch.serve.quantized import (QuantizedModel, quantize_layers,
@@ -183,12 +191,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def arch_config(args: argparse.Namespace):
-    """The arch's config, depth cut to ``--layers``.  Also turns TF32 off:
-    the float32 products left to PyTorch (every float linear, the vocab
-    head, activation transforms) stay full float32."""
+    """The arch's config, depth cut to ``--layers``; an encoder, and
+    without ``--fp`` a family the packed path does not take, are refused.
+    Also turns TF32 off: the float32 products left to PyTorch (every float
+    linear, the vocab head, activation transforms) stay full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(f"--arch {args.arch}: {ENCODER_ONLY}")
+    if not args.fp:
+        require_quantizable(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     return cfg

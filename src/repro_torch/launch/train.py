@@ -12,7 +12,11 @@ and ``launch/serve.py --ckpt`` read its params, and so does the reference's
 ``repro.train.checkpoints.restore``.  ``--device`` defaults to ``cuda`` and
 raises when no CUDA device exists; ``--device cpu`` trains on the CPU.
 ``--mesh host`` (one device) is the only mesh: sharded training is ROADMAP
-queue 1, item 6.
+queue 1, item 6.  Every family with a token stream trains (mamba2 and
+griffin through their own blocks, a VLM on its text alone, each block
+under remat where the config asks); audio is refused, as the reference's
+launcher refuses it in effect: its batches hold tokens, and an audio loss
+reads frame embeddings and labels.
 """
 from __future__ import annotations
 
@@ -38,11 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="opt-mini")
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced smoke config of --arch")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (widths stay)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--ckpt-dir", default="checkpoints/train")
+    ap.add_argument("--ckpt-dir", default="checkpoints/train",
+                    help="'' trains without checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--mesh", default="host",
                     choices=["host", "production", "multipod"])
@@ -64,8 +71,15 @@ def train(args: argparse.Namespace) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"--arch {args.arch}: the launcher's batches are token streams "
+            f"(the reference's too), and an audio model's loss reads frame "
+            f"embeddings and frame labels; train it through Model.loss")
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.microbatches > 1 and args.global_batch % cfg.microbatches:
         cfg = dataclasses.replace(cfg, microbatches=1)
     model = build_model(cfg, device)

@@ -1,4 +1,6 @@
-"""Attention of the float path: causal GQA, no window.
+"""Attention of the float path: GQA under a causal, sliding-window,
+prefix-LM or bidirectional mask (``mask_bias``, the reference's
+``_mask_bias``).
 
 q (B, T, Hq, D), k/v (B, T, Hkv, D); q is viewed as (B, T, Hkv, G, D) so
 K/V are never repeated.  ``dense_attention`` materialises the (B, Hkv, G,
@@ -17,27 +19,49 @@ CHUNK_THRESHOLD = 8192      # the reference's attn_chunk_threshold
 BLOCK = 1024                # its attn_block_q and attn_block_kv
 
 
-def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                    ) -> torch.Tensor:
+def mask_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool = True,
+              window: int = 0, prefix_len: int = 0) -> torch.Tensor:
+    """(Tq, Skv) additive float32 mask: 0 where a query may attend, -1e30
+    elsewhere.  ``causal`` admits kv_pos <= q_pos (and, with ``prefix_len
+    > 0``, every position of the prefix: prefix-LM); ``window > 0`` also
+    needs q_pos - kv_pos < window; ``causal=False`` without a window admits
+    everything (a bidirectional encoder)."""
+    ok = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        c = q_pos[:, None] >= kv_pos[None, :]
+        if prefix_len > 0:
+            c = c | (kv_pos[None, :] < prefix_len)
+        ok = ok & c
+    if window > 0:
+        ok = ok & (q_pos[:, None] - kv_pos[None, :] < window)
+    zero, neg = (torch.tensor(x, dtype=torch.float32, device=q_pos.device)
+                 for x in (0.0, NEG_INF))
+    return torch.where(ok, zero, neg)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    prefix_len: int = 0) -> torch.Tensor:
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     qh = q.reshape(b, t, hkv, hq // hkv, d)
     scores = torch.einsum("bthgd,bshd->bhgts", qh, k).to(torch.float32) \
         * d ** -0.5
-    pos_q = torch.arange(t, device=q.device)
-    pos_k = torch.arange(s, device=q.device)
-    zero, neg = (torch.tensor(v, device=q.device) for v in (0.0, NEG_INF))
-    scores = scores + torch.where(pos_q[:, None] >= pos_k[None, :], zero, neg)
+    scores = scores + mask_bias(torch.arange(t, device=q.device),
+                                torch.arange(s, device=q.device), causal,
+                                window, prefix_len)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype), v)
     return out.to(q.dtype).reshape(b, t, hq, d)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      block_q: int = BLOCK, block_kv: int = BLOCK
-                      ) -> torch.Tensor:
-    """Causal flash-style attention: per query block, a running (max,
-    denominator, accumulator) over the KV blocks, in float32.  Needs
+                      block_q: int = BLOCK, block_kv: int = BLOCK, *,
+                      causal: bool = True, window: int = 0,
+                      prefix_len: int = 0) -> torch.Tensor:
+    """Flash-style attention under :func:`mask_bias`: per query block, a
+    running (max, denominator, accumulator) over the KV blocks, in float32.  Needs
     T % block_q == 0 and S % block_kv == 0.  Every KV block is visited, as
     in the reference's scan (fully masked ones add exp(-1e30 - m) = 0)."""
     b, t, hq, d = q.shape
@@ -52,7 +76,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kh = k.reshape(b, s // block_kv, block_kv, hkv, d)
     vh = v.reshape(b, s // block_kv, block_kv, hkv, d)
     f32 = dict(dtype=torch.float32, device=q.device)
-    zero, neg = (torch.tensor(x, **f32) for x in (0.0, NEG_INF))
     out = []
     for qi in range(t // block_q):
         q_pos = qi * block_q + torch.arange(block_q, device=q.device)
@@ -63,8 +86,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_pos = ki * block_kv + torch.arange(block_kv, device=q.device)
             sc = torch.einsum("bqhgd,bkhd->bhgqk", qh[:, qi],
                               kh[:, ki]).to(torch.float32) * scale
-            sc = sc + torch.where(q_pos[:, None] >= kv_pos[None, :], zero,
-                                  neg)
+            sc = sc + mask_bias(q_pos, kv_pos, causal, window, prefix_len)
             m_new = torch.maximum(m, torch.amax(sc, dim=-1))
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -78,11 +100,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(out, 1).reshape(b, t, hq, d).to(q.dtype)
 
 
-def attention(q, k, v) -> torch.Tensor:
-    """Causal attention: dense up to ``CHUNK_THRESHOLD`` positions, chunked
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              prefix_len: int = 0) -> torch.Tensor:
+    """Masked attention: dense up to ``CHUNK_THRESHOLD`` positions, chunked
     above it when the lengths are multiples of the blocks (the reference's
     dispatch)."""
     t, s = q.shape[1], k.shape[1]
+    mask = dict(causal=causal, window=window, prefix_len=prefix_len)
     if max(t, s) > CHUNK_THRESHOLD and t % BLOCK == 0 and s % BLOCK == 0:
-        return chunked_attention(q, k, v)
-    return dense_attention(q, k, v)
+        return chunked_attention(q, k, v, **mask)
+    return dense_attention(q, k, v, **mask)

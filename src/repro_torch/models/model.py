@@ -1,8 +1,19 @@
-"""The float dense and MoE model of the port: ``init``, ``forward``,
-``loss`` (with the MoE load-balance term), and
-serving through the Engine (``init_cache`` / ``init_paged_cache`` /
-``prefill`` / ``prefill_chunk`` / ``decode_step``, from
-:class:`~repro_torch.models.transformer.ServingTrunk`).
+"""The float model of every family of the reference's registry: ``init``,
+``forward``, ``loss`` (with the MoE load-balance term, audio's frame cross
+entropy) and serving through the Engine (``init_cache`` /
+``init_paged_cache`` / ``prefill`` / ``prefill_chunk`` / ``decode_step``).
+
+dense / moe / vlm / audio share the transformer trunk (its serving half
+is :class:`~repro_torch.models.transformer.ServingTrunk`); mamba2 and
+griffin get their own block assembly, as the reference's
+``models/model.py``: mamba2 stacks SSD blocks, griffin interleaves RG-LRU
+blocks with a sliding-window attention block every ``attn_every``-th
+layer.  Their decode caches hold the recurrent states (``ssm`` / ``rnn``
+and ``conv``, one entry per sequence whatever its length) and, for
+griffin's attention layers, a ring buffer of ``min(max_len, window)``
+slots.  They prefill at exact lengths only (state flows through pad
+positions), have no paged layout and no chunked prefill; audio (an
+encoder) has no decode path at all.  The refusals are the reference's.
 
 The float linears are ``x @ w`` (``torch.matmul``), as the reference
 computes them outside any Pallas kernel; the cache is float (kv16) and
@@ -18,11 +29,47 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.sites import require_ported
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import transformer
-from repro_torch.models.init import init_lm
+from repro_torch.models import griffin, layers, mamba2, transformer
+from repro_torch.models.init import griffin_is_attn, init_lm, layer
+
+ENCODER_ONLY = "encoder-only architecture has no decode path"
+RECURRENT = ("mamba2", "griffin")
+
+
+def _rec_block(rec: dict, x: torch.Tensor, cfg, rnn=None, conv=None,
+               decode: bool = False) -> tuple:
+    """A whole griffin recurrent block: the RG-LRU half, then norm + MLP.
+    Returns (x, rnn state, conv state)."""
+    x, rnn_s, conv_s = griffin.apply_rglru_block(rec["rglru"], x, cfg, rnn,
+                                                 conv, decode)
+    m = layers.apply_norm(rec["ln_mlp"], x, cfg.norm)
+    return x + layers.apply_mlp(rec["mlp"], m, cfg.act), rnn_s, conv_s
+
+
+def griffin_forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Logits (B, T, vocab); attention blocks under the sliding window."""
+    x = params["embed"][tokens.long()]
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    for blk in params["layers"]:
+        if "kind_attn" in blk:
+            x = transformer.call_block(cfg.remat, transformer.apply_block_full,
+                                       blk["kind_attn"], x, cfg, pos, 0,
+                                       cfg.window)[0]
+        else:
+            x = transformer.call_block(cfg.remat, _rec_block,
+                                       blk["kind_rec"], x, cfg)[0]
+    return transformer.head(params, cfg, x)
+
+
+def mamba_forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """Logits (B, T, vocab) through the stacked SSD blocks."""
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.num_layers):
+        x = transformer.call_block(cfg.remat, mamba2.apply_mamba2_block,
+                                   layer(params["layers"], i), x, cfg)[0]
+    return transformer.head(params, cfg, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,25 +85,212 @@ class Model(transformer.ServingTrunk):
         object.__setattr__(self, "device", resolve_device(self.device))
         if self.mode not in ops.MODES:
             raise ValueError(f"mode={self.mode!r}: use one of {ops.MODES}")
-        require_ported(self.cfg)
 
     def _mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w
 
+    def _t(self, x) -> Optional[torch.Tensor]:
+        return None if x is None else torch.as_tensor(x).to(self.device)
+
+    # ---- construction and training ------------------------------------
     def init(self, seed: int) -> dict:
         """Seeded random float parameters on the model's device."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_lm(self.cfg, gen, self.device)
 
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
-        return transformer.forward(params, self.cfg,
-                                   torch.as_tensor(batch["tokens"]
-                                                   ).to(self.device))
+        """Logits of the whole sequence (a VLM's prefix positions first;
+        audio reads ``embeds``)."""
+        cfg, tokens = self.cfg, self._t(batch.get("tokens"))
+        if cfg.family == "mamba2":
+            return mamba_forward(params, cfg, tokens)
+        if cfg.family == "griffin":
+            return griffin_forward(params, cfg, tokens)
+        prefix = batch.get("embeds", batch.get("prefix_embeds"))
+        return transformer.forward(params, cfg, tokens, self._t(prefix))
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
-        return transformer.lm_loss(params, self.cfg,
-                                   dict(batch, tokens=tokens))
+        cfg = self.cfg
+        batch = {k: self._t(v) for k, v in batch.items()}
+        if cfg.family in RECURRENT:
+            tokens = batch["tokens"]
+            logits = self.forward(params, batch)
+            return layers.cross_entropy(logits[:, :-1], tokens[:, 1:])
+        return transformer.lm_loss(params, cfg, batch)
+
+    # ---- serving: what each family admits -------------------------------
+    @property
+    def supports_padded_prefill(self) -> bool:
+        """End-padded prompts with per-sequence ``lengths`` are exact for
+        the causal trunk only: recurrent state flows through pad positions,
+        and a sliding-window cache holds ``window`` slots."""
+        return self.cfg.family not in RECURRENT + ("audio",) \
+            and not self.cfg.window
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Chunks read the cache as stored: the causal trunk, without a
+        VLM's prefix (its absolute positions are prefix + text)."""
+        return self.supports_padded_prefill and self.cfg.family != "vlm"
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        if cfg.family == "mamba2":
+            ssm, conv = mamba2.init_mamba2_state(cfg, batch, self.device)
+            return {"ssm": ssm.repeat(cfg.num_layers, 1, 1, 1, 1),
+                    "conv": conv.repeat(cfg.num_layers, 1, 1, 1),
+                    "len": self._ints(None, 0, batch)}
+        if cfg.family == "griffin":
+            n_attn = sum(griffin_is_attn(cfg, i)
+                         for i in range(cfg.num_layers))
+            n_rec = cfg.num_layers - n_attn
+            shape = (n_attn, batch, min(max_len, cfg.window),
+                     cfg.num_kv_heads, cfg.resolved_head_dim)
+            dt = getattr(torch, cfg.dtype)
+            rnn, conv = griffin.init_rglru_state(cfg, batch, self.device)
+            return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                    "v": torch.zeros(shape, dtype=dt, device=self.device),
+                    "rnn": rnn.repeat(n_rec, 1, 1),
+                    "conv": conv.repeat(n_rec, 1, 1, 1),
+                    "len": self._ints(None, 0, batch)}
+        return super().init_cache(batch, max_len)
+
+    def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                         max_pages_per_seq: int):
+        """The transformer families' page pools; recurrent and windowed
+        families have no paged layout (their state is O(1) or a ring
+        buffer already)."""
+        cfg = self.cfg
+        if cfg.family in RECURRENT + ("audio",) or cfg.window:
+            raise NotImplementedError(
+                f"paged KV cache: unsupported for family={cfg.family} "
+                f"window={cfg.window}")
+        return super().init_paged_cache(batch, num_pages, page_size,
+                                        max_pages_per_seq)
+
+    # ---- serving: prefill ------------------------------------------------
+    def prefill(self, params: dict, batch: dict, max_len: int):
+        """Whole-prompt prefill into a fresh cache.  ``batch["lengths"]``
+        (B,) marks end-padded prompts (``supports_padded_prefill`` only);
+        a VLM's ``batch["prefix_embeds"]`` (B, P, d) precede its tokens and
+        the cache holds both.  Returns (logits (B, 1, vocab) at each last
+        valid position, cache)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            raise ValueError(ENCODER_ONLY)
+        if batch.get("lengths") is not None and not self.supports_padded_prefill:
+            raise ValueError(f"padded prefill is not exact for "
+                             f"family={cfg.family}: recurrent state flows "
+                             f"through pad positions")
+        if cfg.family == "mamba2":
+            return self._mamba_prefill(params, self._t(batch["tokens"]))
+        if cfg.family == "griffin":
+            return self._griffin_prefill(params, self._t(batch["tokens"]),
+                                         max_len)
+        prefix = batch.get("prefix_embeds")
+        if prefix is None:
+            return super().prefill(params, batch, max_len)
+        if batch.get("lengths") is not None:
+            raise ValueError("padded prefill with a VLM prefix: lengths "
+                             "would be ambiguous (prefix + text)")
+        x, pos, p_len = transformer.embed_inputs(
+            params, cfg, self._t(batch["tokens"]), self._t(prefix))
+        bsz, t_all = x.shape[0], x.shape[1]
+        cache = self.init_cache(bsz, max(max_len, t_all))
+        for i in range(cfg.num_layers):
+            x, k, v = self._block_full_kv(layer(params["layers"], i), x,
+                                          pos, prefix_len=p_len)
+            cache["k"][i, :, :t_all] = k
+            cache["v"][i, :, :t_all] = v
+        cache["len"] = self._ints(None, t_all, bsz)
+        return self._head(params, x[:, -1:]), cache
+
+    def _mamba_prefill(self, params: dict, tokens: torch.Tensor):
+        cfg = self.cfg
+        bsz, t = tokens.shape
+        x = params["embed"][tokens.long()]
+        ssm, conv = [], []
+        for i in range(cfg.num_layers):
+            x, s, c = mamba2.apply_mamba2_block(layer(params["layers"], i),
+                                                x, cfg)
+            ssm.append(s)
+            conv.append(c)
+        cache = {"ssm": torch.stack(ssm), "conv": torch.stack(conv),
+                 "len": self._ints(None, t, bsz)}
+        return self._head(params, x[:, -1:]), cache
+
+    def _griffin_prefill(self, params: dict, tokens: torch.Tensor,
+                         max_len: int):
+        """The whole prompt, then the ring buffer: position p of the last
+        ``w = min(max_len, window)`` lands in slot p % w (a roll by T % w
+        when T > w)."""
+        cfg = self.cfg
+        bsz, t = tokens.shape
+        pos = torch.arange(t, device=self.device)[None, :]
+        x = params["embed"][tokens.long()]
+        cache = self.init_cache(bsz, max_len)
+        w = cache["k"].shape[2]
+        ai = ri = 0
+        for blk in params["layers"]:
+            if "kind_attn" in blk:
+                x, k, v = self._block_full_kv(blk["kind_attn"], x, pos,
+                                              window=cfg.window)
+                for key, val in (("k", k), ("v", v)):
+                    if t <= w:
+                        cache[key][ai, :, :t] = val
+                    else:
+                        cache[key][ai] = torch.roll(val[:, t - w:], t % w,
+                                                    dims=1)
+                ai += 1
+            else:
+                x, cache["rnn"][ri], cache["conv"][ri] = _rec_block(
+                    blk["kind_rec"], x, cfg)
+                ri += 1
+        cache["len"] = self._ints(None, t, bsz)
+        return self._head(params, x[:, -1:]), cache
+
+    def prefill_chunk(self, params: dict, batch: dict, cache, offset, *,
+                      last_only: bool = False):
+        if not self.supports_chunked_prefill:
+            raise NotImplementedError(
+                f"chunked prefill: unsupported for family={self.cfg.family} "
+                f"window={self.cfg.window}")
+        return super().prefill_chunk(params, batch, cache, offset,
+                                     last_only=last_only)
+
+    # ---- serving: decode -------------------------------------------------
+    def decode_step(self, params: dict, token, cache):
+        """token (B, 1) -> (logits (B, 1, vocab), cache), updated in place.
+        A recurrent cache's ``len`` counts positions without saturating
+        (griffin's ring wraps at its size)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            raise ValueError(ENCODER_ONLY)
+        if cfg.family not in RECURRENT:
+            return super().decode_step(params, token, cache)
+        cur_len = cache["len"]
+        x = params["embed"][self._t(token).long()]
+        if cfg.family == "mamba2":
+            for i in range(cfg.num_layers):
+                x, cache["ssm"][i], cache["conv"][i] = \
+                    mamba2.apply_mamba2_block(
+                        layer(params["layers"], i), x, cfg, cache["ssm"][i],
+                        cache["conv"][i], decode=True)
+        else:
+            ai = ri = 0
+            for blk in params["layers"]:
+                if "kind_attn" in blk:
+                    x = self._block_decode(blk["kind_attn"], x,
+                                           (cache["k"][ai], cache["v"][ai]),
+                                           cur_len)
+                    ai += 1
+                else:
+                    x, cache["rnn"][ri], cache["conv"][ri] = _rec_block(
+                        blk["kind_rec"], x, cfg, cache["rnn"][ri],
+                        cache["conv"][ri], decode=True)
+                    ri += 1
+        cache["len"] = (cur_len + 1).to(torch.int32)
+        return self._head(params, x), cache
 
 
 def build_model(cfg: ModelConfig, device="cuda", mode: str = "auto") -> Model:

@@ -1,16 +1,23 @@
-"""The transformer trunk of the dense and MoE families: full-sequence
-block, forward and LM loss (with the MoE load-balance term), the
-sinusoidal positions of the no-RoPE (OPT) family, and the serving half:
-the decode cache, prefill chunks and decode steps over the linear or the
-paged cache (:class:`ServingTrunk`).
+"""The transformer trunk of the dense, MoE, VLM and audio families and
+griffin's attention blocks: full-sequence block, forward and LM loss (with
+the MoE load-balance term and audio's frame cross entropy), the sinusoidal
+positions of the no-RoPE families (OPT, hubert), and the serving half: the
+decode cache, prefill chunks and decode steps over the linear or the paged
+cache (:class:`ServingTrunk`).
 
 Layer parameters are stacked with a leading ``L`` axis (as
 :func:`repro_torch.models.init.init_lm` builds them); biases are honoured
 by presence (``bq``/``bk``/``bv``, a norm's ``bias``, ``b_gate``/``b_up``),
-since merging a calibrated shifted transform introduces them.  No prefix
-embeddings, no sliding window: the ported archs have neither.  An MoE
+since merging a calibrated shifted transform introduces them.  An MoE
 block (``cfg.num_experts``) holds ``moe`` (router and stacked experts,
 :mod:`repro_torch.models.moe`) where a dense block holds ``mlp``.
+
+The masks are the reference's: causal, or bidirectional for audio
+(``causal=False``); a VLM's prefix embeddings precede its text tokens and
+every position attends the whole prefix (prefix-LM); a sliding
+``window`` (griffin's local attention) keeps the last ``window``
+positions, and its decode cache is a ring buffer of ``min(max_len,
+window)`` slots.
 """
 from __future__ import annotations
 
@@ -67,10 +74,32 @@ def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def embed_inputs(params: dict, cfg, tokens=None, prefix_embeds=None
+                 ) -> tuple:
+    """(x (B, T, d), positions (1, T), prefix_len), the reference's
+    ``_embed_inputs``: audio's inputs are its frame embeddings (B, T, d)
+    plus sinusoidal positions; a VLM's ``prefix_embeds`` (B, P, d) precede
+    its token embeddings, and the prefix-LM mask then opens the first P
+    positions to every query."""
+    prefix_len = 0
+    if cfg.family == "audio":
+        x = prefix_embeds + _sinusoidal(
+            prefix_embeds.shape[1], cfg.d_model,
+            prefix_embeds.device).to(prefix_embeds.dtype)[None]
+    else:
+        x = embed(params, cfg, tokens)
+        if cfg.family == "vlm" and prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+            prefix_len = prefix_embeds.shape[1]
+    return x, torch.arange(x.shape[1], device=x.device)[None, :], prefix_len
+
+
 def apply_block_full(p: dict, x: torch.Tensor, cfg,
-                     positions: torch.Tensor) -> tuple:
-    """One full-sequence block (causal attention + MLP or MoE, pre-norm).
-    Returns (x, aux): the MoE load-balance loss, 0 for a dense block."""
+                     positions: torch.Tensor, prefix_len: int = 0,
+                     window: int = 0) -> tuple:
+    """One full-sequence block (attention under the config's mask + MLP or
+    MoE, pre-norm).  Returns (x, aux): the MoE load-balance loss, 0 for a
+    dense block."""
     h = layers.apply_norm(p["ln_attn"], x, cfg.norm)
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if "bq" in p:
@@ -83,7 +112,8 @@ def apply_block_full(p: dict, x: torch.Tensor, cfg,
     if cfg.rope_theta > 0:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    out = attn_lib.attention(q, k, v)
+    out = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
+                             prefix_len=prefix_len)
     x = x + out.reshape(b, t, -1) @ p["wo"]
     h2 = layers.apply_norm(p["ln_mlp"], x, cfg.norm)
     if cfg.num_experts:
@@ -95,39 +125,60 @@ def apply_block_full(p: dict, x: torch.Tensor, cfg,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def forward_with_aux(params: dict, cfg, tokens: torch.Tensor) -> tuple:
-    """(logits (B, T, vocab) of the whole sequence, the load-balance loss
-    summed over layers).  With ``cfg.remat`` and autograd on, each block
-    keeps only its input for backward and runs again there (the
-    reference's ``jax.checkpoint`` around the block): the same values and
-    gradients for less activation memory."""
-    x = embed(params, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        p = layer(params["layers"], i)
-        if remat:
-            x, aux_l = torch.utils.checkpoint.checkpoint(
-                apply_block_full, p, x, cfg, positions, use_reentrant=False)
-        else:
-            x, aux_l = apply_block_full(p, x, cfg, positions)
-        aux = aux + aux_l
+def call_block(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` and autograd on, ``fn`` keeps only its
+    inputs for backward and runs again there (the reference's
+    ``jax.checkpoint`` around a block): the same values and gradients for
+    less activation memory."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def head(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the (tied or untied) vocabulary head."""
     x = layers.apply_norm(params["ln_f"], x, cfg.norm)
     w = params.get("head")
-    return x @ (w if w is not None else params["embed"].T), aux
+    return x @ (w if w is not None else params["embed"].T)
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def forward_with_aux(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
+                     prefix_embeds: Optional[torch.Tensor] = None) -> tuple:
+    """(logits (B, T, vocab) of the whole sequence — a VLM's prefix
+    positions included —, the load-balance loss summed over layers), each
+    block through :func:`call_block` (``cfg.remat``)."""
+    x, positions, prefix_len = embed_inputs(params, cfg, tokens,
+                                            prefix_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, aux_l = call_block(cfg.remat, apply_block_full,
+                              layer(params["layers"], i), x, cfg, positions,
+                              prefix_len, cfg.window)
+        aux = aux + aux_l
+    return head(params, cfg, x), aux
+
+
+def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits (B, T, vocab) of the whole sequence."""
-    return forward_with_aux(params, cfg, tokens)[0]
+    return forward_with_aux(params, cfg, tokens, prefix_embeds)[0]
 
 
 def lm_loss(params: dict, cfg, batch: dict) -> torch.Tensor:
-    """Next-token cross entropy plus ``0.01 *`` the load-balance loss (0
-    for a dense model), as the reference."""
-    tokens = batch["tokens"]
-    logits, aux = forward_with_aux(params, cfg, tokens)
+    """Next-token cross entropy over the text (a VLM's prefix positions
+    excluded), or audio's frame cross entropy against ``labels``, plus
+    ``0.01 *`` the load-balance loss (0 for a dense model), as the
+    reference."""
+    if cfg.family == "audio":
+        logits, aux = forward_with_aux(params, cfg,
+                                       prefix_embeds=batch["embeds"])
+        return layers.cross_entropy(logits, batch["labels"],
+                                    batch.get("mask")) + 0.01 * aux
+    tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
+    logits, aux = forward_with_aux(params, cfg, tokens, prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
     return layers.cross_entropy(logits[:, :-1], tokens[:, 1:],
                                 batch.get("mask")) + 0.01 * aux
 
@@ -243,9 +294,7 @@ class ServingTrunk:
         return x
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = layers.apply_norm(params["ln_f"], x, self.cfg.norm)
-        head = params.get("head")
-        return x @ (head if head is not None else params["embed"].T)
+        return head(params, self.cfg, x)
 
     def _ints(self, x, fill: int, n: int) -> torch.Tensor:
         if x is None:
@@ -347,6 +396,27 @@ class ServingTrunk:
         x = x + self._mm(out.reshape(b, c, -1), p["wo"])
         return x + self._mlp(p, x)
 
+    def _block_full_kv(self, p, x, pos, *, window: int = 0,
+                       prefix_len: int = 0) -> tuple:
+        """One whole-sequence block that also returns its K/V (B, T, Hkv,
+        D): a prefill whose cache is not the linear one (griffin's ring
+        buffer, a VLM's prefix).  Where the mask is plainly causal (no
+        prefix, and no window or one that does not bind at T) attention is
+        ``ops.flash_prefill`` over the block's own K/V; else the plain
+        masked attention, as the reference's (the TPU kernel has neither a
+        window nor a prefix mask)."""
+        b, t = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(p, x, pos)
+        if self.cfg.causal and not prefix_len and (not window or t <= window):
+            zero = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            out = ops.flash_prefill(q, (k, v), zero, zero + t,
+                                    block_kv=self.block_kv, mode=self.mode)
+        else:
+            out = attn_lib.attention(q, k, v, causal=self.cfg.causal,
+                                     window=window, prefix_len=prefix_len)
+        x = x + self._mm(out.reshape(b, t, -1), p["wo"])
+        return x + self._mlp(p, x), k, v
+
     # ---- decode --------------------------------------------------------
     def decode_step(self, params: dict, token, cache):
         """token (B, 1) -> (logits (B, 1, vocab), cache), writing each
@@ -370,15 +440,25 @@ class ServingTrunk:
         b = x.shape[0]
         s = kv[0].shape[1]
         q, k, v = self._qkv(p, x, cur_len[:, None])
-        # a full row's write is dropped: write the old value back at the
-        # clamped index (one index per row, so no duplicate scatter)
-        idx = torch.clamp_max(cur_len, s - 1).long()
         rows = torch.arange(b, device=self.device)
-        keep = (cur_len >= s)
-        for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
-            old = ct[rows, idx]
-            mask = keep.reshape(-1, *([1] * (old.ndim - 1)))
-            ct[rows, idx] = torch.where(mask, old, val.to(ct.dtype))
+        if self.cfg.window:
+            # ring buffer: position len lives in slot len % s, RoPE'd at
+            # its absolute position when written, so the min(len + 1, s)
+            # written slots are exactly the positions the window admits
+            # (attention sums them in slot order)
+            idx = (cur_len % s).long()
+            for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
+                ct[rows, idx] = val.to(ct.dtype)
+        else:
+            # a full row's write is dropped: write the old value back at
+            # the clamped index (one index per row, so no duplicate
+            # scatter)
+            idx = torch.clamp_max(cur_len, s - 1).long()
+            keep = (cur_len >= s)
+            for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
+                old = ct[rows, idx]
+                mask = keep.reshape(-1, *([1] * (old.ndim - 1)))
+                ct[rows, idx] = torch.where(mask, old, val.to(ct.dtype))
         out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, s),
                                block_kv=self.block_kv, mode=self.mode)
         x = x + self._mm(out.reshape(b, 1, -1), p["wo"])

@@ -73,7 +73,10 @@ def adam_update(params, grads, state: dict, cfg: AdamConfig,
 
 
 def _pick(tree, i: int):
-    """Entry ``i`` of every (param, mu, nu) leaf of a dict tree."""
+    """Entry ``i`` of every (param, mu, nu) leaf of a dict / list tree (a
+    leaf is a tuple; griffin's layers are a list)."""
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
     return tree[i]

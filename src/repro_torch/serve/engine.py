@@ -14,8 +14,12 @@ and a FIFO queue of pending requests.  Each ``step``
      * whole-prompt: pops a FIFO run of pending requests whose prompts pad
        to the same bucket (``prefill_bucket`` multiples), prefills them in
        one batched call (end padding is exact for the causal trunk) and
-       splices each row into its slot (into its pages when paged);
-     * chunked (``prefill_chunk > 0``): assigns pending requests to free
+       splices each row into its slot (into its pages when paged); a
+       model without ``supports_padded_prefill`` (the recurrent families)
+       groups prompts of one exact length and prefills them without
+       ``lengths``;
+     * chunked (``prefill_chunk > 0``, a model with
+       ``supports_chunked_prefill``): assigns pending requests to free
        slots (FIFO) and feeds the oldest mid-prefill prompt through
        ``prefill_chunk`` in chunks of at most ``prefill_chunk`` tokens, one
        chunk per step, interleaved with decode;
@@ -171,9 +175,11 @@ def _next_multiple(n: int, m: int) -> int:
 
 
 def tree_bytes(tree) -> int:
-    """Bytes held by the tensors of a (nested dict) tree."""
+    """Bytes held by the tensors of a nested dict / list tree."""
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
     if isinstance(tree, QTensor):
         return tree.nbytes
     return tree.numel() * tree.element_size()
@@ -239,10 +245,20 @@ class Engine:
                 "prefix_cache=True needs paged=True and prefill_chunk > 0: "
                 "prefix reuse shares whole pool pages and resumes chunked "
                 "prefill at the first novel token")
+        if cfg.prefill_chunk and not getattr(model, "supports_chunked_prefill",
+                                             False):
+            raise ValueError(
+                f"chunked admission (prefill_chunk={cfg.prefill_chunk}) "
+                f"needs model.prefill_chunk; {type(model).__name__} does "
+                f"not support it")
         self.model = model
         self.params = params
         self.cfg = cfg
         self._faults = faults
+        # end-padded prompts are exact only for the causal trunk: the
+        # recurrent families prefill at exact lengths, without ``lengths``
+        self._supports_padded = bool(getattr(model, "supports_padded_prefill",
+                                             False))
         if cfg.paged:
             self._kv = PagedCache(model, cfg.max_batch, cfg.max_len,
                                   cfg.page_size, num_pages=cfg.num_pages,
@@ -480,6 +496,10 @@ class Engine:
 
     # ---- admission: bucketed batch prefill --------------------------------
     def _bucket(self, n: int) -> int:
+        """The prompt's padded length: a ``prefill_bucket`` multiple, or
+        ``n`` itself for a model that cannot take end padding."""
+        if not self._supports_padded:
+            return n
         return min(_next_multiple(n, self.cfg.prefill_bucket),
                    self._kv.capacity)
 
@@ -522,10 +542,11 @@ class Engine:
             lengths = np.asarray([r.resume_len for r in group], np.int32)
             for row, req in enumerate(group):
                 tokens[row, :req.resume_len] = req.resume_tokens()
-            logits, cache1 = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(tokens),
-                              "lengths": torch.from_numpy(lengths)},
-                max_len=bucket)
+            batch = {"tokens": torch.from_numpy(tokens)}
+            if self._supports_padded:
+                batch["lengths"] = torch.from_numpy(lengths)
+            logits, cache1 = self.model.prefill(self.params, batch,
+                                                max_len=bucket)
             poison = self._poison(len(group), [
                 (row, {"rid": req.rid}) for row, req in enumerate(group)])
             drawn, _ = self._sample_rows(logits[:, -1, :], group, poison)

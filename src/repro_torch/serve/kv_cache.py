@@ -395,14 +395,20 @@ class LinearCache:
 
     def splice(self, slot: int, seq_cache: dict, row: int,
                length: int) -> None:
-        """Copy row ``row`` of a prefilled cache (often a prompt-bucket
-        long) into ``slot`` as a prefix along the sequence axis."""
-        for key in SEQ_KEYS:
-            if key not in seq_cache:
+        """Copy row ``row`` of a prefilled cache into ``slot``: entries with
+        a sequence axis (often a prompt-bucket long; griffin's ring buffer
+        holds the prompt's last ``window`` positions in their slots) as a
+        prefix along it, the recurrent states (``ssm``, ``rnn``, ``conv``)
+        whole."""
+        for key, src in seq_cache.items():
+            if key == "len":
                 continue
-            dst, src = self.cache[key], seq_cache[key]
-            t = min(src.shape[2], dst.shape[2])
-            dst[:, slot, :t] = src[:, row, :t].to(dst.dtype)
+            dst = self.cache[key]
+            if key in SEQ_KEYS:
+                t = min(src.shape[2], dst.shape[2])
+                dst[:, slot, :t] = src[:, row, :t].to(dst.dtype)
+            else:
+                dst[:, slot] = src[:, row].to(dst.dtype)
         self.cache["len"][slot] = length
 
     def free(self, slot: int) -> int:

@@ -40,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.quantizer import (QuantConfig, effective_group_size,
                                         quantize_codes)
-from repro_torch.core.sites import require_ported
+from repro_torch.core.sites import require_quantizable
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import kv4_check_head_dim, kv4_quantize
@@ -91,6 +91,7 @@ def quantize_lm_packed(params: dict, cfg: ModelConfig, qcfg: QuantConfig
                        ) -> dict:
     """Raw float tree -> packed serving tree on the RTN grid; a tree that
     already holds QTensor linears passes through untouched."""
+    require_quantizable(cfg)
     if isinstance(params["layers"]["wq"], QTensor):
         return params
     out = {k: params[k] for k in ("embed", "ln_f", "head") if k in params}
@@ -133,7 +134,7 @@ class QuantizedModel(ServingTrunk):
         cfg, qcfg = self.cfg, self.qcfg
         if self.mode not in ops.MODES:
             raise ValueError(f"mode={self.mode!r}: use one of {ops.MODES}")
-        require_ported(cfg)
+        require_quantizable(cfg)
         if qcfg.a_bits < 16 and not 2 <= qcfg.a_bits <= 8:
             raise ValueError(f"a_bits={qcfg.a_bits}: use 2..8 or >= 16")
         if qcfg.kv_bits < 16 and qcfg.kv_bits not in (4, 8):

@@ -4,7 +4,7 @@
 * **checkpoint/restart**: step-tagged atomic checkpoints every
   ``ckpt_every`` steps and at the end; on start the loop restores the
   latest checkpoint beyond the state's step, and the step-addressable data
-  pipeline resumes exactly;
+  pipeline resumes exactly (an empty ``ckpt_dir``: no checkpoints);
 * **poisoned steps**: a non-finite loss or gradient norm keeps the old
   state (the update is out of place, so nothing was written) and counts;
   ``max_bad_steps`` in a row abort with ``RuntimeError``;
@@ -31,7 +31,7 @@ from repro_torch.utils import StepTimer, logger
 class LoopConfig:
     total_steps: int = 100
     ckpt_every: int = 50
-    ckpt_dir: str = "checkpoints"
+    ckpt_dir: str = "checkpoints"    # "" (or None): no checkpoints
     keep: int = 3
     log_every: int = 10
     max_bad_steps: int = 10
@@ -45,7 +45,7 @@ def train_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
     state.  ``on_metrics(step, metrics, seconds)`` sees every applied
     step."""
     start = int(state.step)
-    latest = checkpoints.latest_step(cfg.ckpt_dir)
+    latest = checkpoints.latest_step(cfg.ckpt_dir) if cfg.ckpt_dir else None
     if latest is not None and latest > start:
         state, start = checkpoints.restore(cfg.ckpt_dir, state)
         logger.info("restored checkpoint at step %d", start)
@@ -84,7 +84,8 @@ def train_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                         loss, gnorm, dt)
         if on_metrics is not None:
             on_metrics(step, metrics, dt)
-        if (step + 1) % cfg.ckpt_every == 0 or step + 1 == cfg.total_steps:
+        if cfg.ckpt_dir and ((step + 1) % cfg.ckpt_every == 0
+                             or step + 1 == cfg.total_steps):
             checkpoints.save(cfg.ckpt_dir, step + 1, state, keep=cfg.keep,
                              extra={"stragglers": stragglers})
     return state

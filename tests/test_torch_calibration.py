@@ -337,17 +337,23 @@ def test_quantize_dense_model_beats_rtn():
 
 
 def test_other_families_and_baselines_refuse():
-    """The families not ported yet refuse in calibration and in the
-    baselines; the baselines refuse MoE too, being dense-only as the
-    reference's whole-model drivers are (which are ported: only a method
-    they do not have refuses)."""
+    """The families without a quantized path refuse in calibration and in
+    the baselines: mamba2 and griffin, which the reference cannot quantize
+    either, and vlm and audio, naming their ROADMAP item; the baselines
+    refuse MoE too, being dense-only as the reference's whole-model drivers
+    are (which are ported: only a method they do not have refuses)."""
     from repro_torch.core.baselines import quantize_model_baseline
     cfg = dataclasses.replace(get_config("llama-micro"), family="mamba2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="no quantized path"):
         sites.block_sites(cfg, True)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="no quantized path"):
         quantize_model_baseline({}, cfg, QuantConfig(), toks, "gptq")
+    vlm = dataclasses.replace(get_config("llama-micro"), family="vlm")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        sites.block_sites(vlm, True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        quantize_model_baseline({}, vlm, QuantConfig(), toks, "gptq")
     with pytest.raises(NotImplementedError, match="dense-only"):
         quantize_model_baseline({}, get_config("qwen3-moe-30b-a3b").reduced(),
                                 QuantConfig(), toks, "gptq")

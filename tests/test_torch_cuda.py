@@ -1091,3 +1091,57 @@ def test_apply_moe_on_the_card_equals_the_cpu(dev):
     assert err < 1e-5, err
     if kept.all():          # a flip moves the load-balance counts
         assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * float(aux_cpu)
+
+
+@pytest.mark.parametrize("b", [4, 48])
+def test_flash_decode_at_the_griffin_shape_over_a_wrapped_ring(dev, b):
+    """recurrentgemma's local attention (Hkv 1, G 10, D 256, kv16) over a
+    wrapped ring of 2,048 slots (every slot valid) and ragged lengths: the
+    kernel within 1e-5 of its plain version; at B 48 the kernel folds 4
+    query heads into a block (row tiles 4 + 4 + 2), and each row equals
+    the same row computed alone."""
+    rng = np.random.default_rng(b)
+    s, hkv, g, d = 2048, 1, 10, 256
+    lens = ([2048, 2048, 1000, 1] * b)[:b]
+    kv = _cache(rng, b, s, hkv, d, False, dev)
+    q = torch.from_numpy(rng.standard_normal((b, hkv, g, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = flash_decode(q, kv[0], kv[1], cur)
+    want = flash_decode_plain(q, kv[0], kv[1], cur, block_kv=256)
+    assert _err(got, want) < 1e-5
+    one = flash_decode(q[:1].contiguous(), kv[0][:1].contiguous(),
+                       kv[1][:1].contiguous(), cur[:1])
+    assert _err(one, got[:1]) < 1e-6
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
+                                  "paligemma-3b"])
+def test_recurrent_and_vlm_models_on_the_card_match_the_cpu(dev, arch):
+    """The reduced float Model of each family on the card against the CPU
+    from the same params: prefill of 20 tokens + 6 decode steps within
+    1e-5 (griffin's prompt rolls its 8-slot ring and its decode runs
+    flash_decode over the wrapped ring; the VLM prefills a prefix)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.utils import tree_map
+    cfg = get_config(arch).reduced()
+    params = Model(cfg, "cpu").init(0)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 26)).astype(np.int32))
+    prefix = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, cfg.num_prefix, cfg.d_model)).astype(np.float32))
+
+    def run(device):
+        m, p = Model(cfg, device), tree_map(lambda t: t.to(device), params)
+        batch = {"tokens": toks[:, :20]}
+        if cfg.num_prefix:
+            batch["prefix_embeds"] = prefix
+        lg, cache = m.prefill(p, batch, 32)
+        seq = [lg]
+        for i in range(6):
+            lg, cache = m.decode_step(p, toks[:, 20 + i:21 + i], cache)
+            seq.append(lg)
+        return torch.cat(seq, 1).cpu()
+
+    assert _err(run(dev), run("cpu")) < 1e-5

@@ -235,8 +235,13 @@ def test_float_model_modes_and_build():
     cache = m.init_cache(2, 16)
     assert sorted(cache) == ["k", "len", "v"]
     assert cache["k"].shape == (2, 2, 16, 4, 32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        Model(dataclasses.replace(cfg, family="mamba2"), "cpu")
+    mamba = Model(get_config("mamba2-1.3b").reduced(), "cpu")
+    assert not (mamba.supports_padded_prefill
+                or mamba.supports_chunked_prefill)
+    with pytest.raises(NotImplementedError, match="paged KV cache"):
+        mamba.init_paged_cache(2, 4, 8, 2)
+    with pytest.raises(NotImplementedError, match="chunked prefill"):
+        mamba.prefill_chunk({}, {"tokens": torch.zeros((1, 4))}, {}, [0])
 
 
 def test_serve_cli_float_compare_and_w3(capsys):

@@ -95,7 +95,8 @@ def test_long_sequences_refuse(monkeypatch):
     monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 32)
     monkeypatch.setattr(attention, "BLOCK", 16)
     monkeypatch.setattr(attention, "chunked_attention",
-                        lambda *a: calls.append(1) or chunked(*a, 16, 16))
+                        lambda *a, **mask: calls.append(1)
+                        or chunked(*a, 16, 16, **mask))
     rng = np.random.default_rng(10)
     for t, routed in ((64, 1), (40, 0)):
         calls.clear()

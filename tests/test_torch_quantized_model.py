@@ -188,11 +188,15 @@ def test_kv_quantize_conserves_nan():
 
 
 def test_unported_features_raise(setup):
-    """The other families are refused, naming their ROADMAP item (3-bit
-    weights serve: ``test_torch_dense_archs.py``)."""
+    """The other families are refused: mamba2 and griffin have no
+    quantized path (nor in the reference), vlm and audio name their ROADMAP
+    item (3-bit weights serve: ``test_torch_dense_archs.py``)."""
     tcfg = setup[1]
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="no quantized path"):
         QuantizedModel(dataclasses.replace(tcfg, family="mamba2"),
+                       QuantConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        QuantizedModel(dataclasses.replace(tcfg, family="audio"),
                        QuantConfig(), device="cpu")
 
 
