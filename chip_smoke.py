@@ -53,7 +53,15 @@ failure raises (exit code != 0).
    and dbrx's 6144 -> 6144 and 6144 -> 1024 (bit for bit, rows equal
    across M), dequant_matmul at 2048 -> 512, and quantize_pack at their
    weight and expert shapes (2048 x 4096, 2048 x 512, 4096 x 2048, 2048
-   x 768, 768 x 2048, 6144 x 10752, 10752 x 6144).
+   x 768, 768 x 2048, 6144 x 10752, 10752 x 6144).  The quantized vlm and
+   audio archs' linears: w4a8_matmul and dequant_matmul at M = 4 and 512
+   for hubert-xlarge's 1280 -> 1280, 1280 -> 5120 and 5120 -> 1280 and
+   paligemma-3b's 2048 -> 2048, 2048 -> 256, 2048 -> 16384 and 16384 ->
+   2048 (w4a8 bit for bit, rows equal across M), quantize_pack at those
+   weight shapes, and the four attention kernels at hubert's Hkv 16, G 1,
+   D 80 (kv16 and kv8: 32 does not divide 80, so kv4 is refused there);
+   paligemma's attention is gemma-2b's.  Every quantize_pack line also
+   gives the call's device work alone.
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -253,14 +261,37 @@ failure raises (exit code != 0).
    attention shape (Hkv 1, G 10, D 256): decode over the wrapped ring of
    2,048 slots at B 4 and at B 48 (row tiles 4 + 4 + 2), prefill of 128-
    and 2,040-token chunks.
-16. summary.  Every kernel's ``launches`` is the count of the runs above
-   that drive the main path (the startup packing of phases 3, 4, 12 and
-   14, phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
+16. quantized vlm and audio, as the reference quantizes and serves them
+   (token trunks; packed hubert is causal, its calibration bidirectional):
+   (a) paligemma-3b W4A4 g128 kv8 at published width and depth (18
+   layers, MQA of 8 heads of 256, GeGLU d_ff 16,384, a tied 257,216-token
+   head), seed-0 weights RTN-packed layer by layer at startup (126
+   quantize_pack launches, one a linear, counted and gated), phase 3's
+   requests over the linear cache, pages of 64 (streams equal the linear
+   ones) and chunks of 64 into a 10-page pool (must preempt and
+   complete), then kv4 paged, each with the per-block check; tok/s and the
+   decode step beside the weight-stream bound, weight / KV bytes, peak
+   memory; (b) hubert-xlarge W4A4 g128 at 48 layers (16 heads of 80,
+   LayerNorm, GELU, vocab 504), the same runs at kv8 and kv16, kv4
+   refused (gated), and a causality gate: changing token 5 of a prompt
+   leaves positions 0-4 of the packed logits bit for bit and moves
+   position 6; (c) AffineQuant W4A4 g128 kv8 of two layers of each arch
+   at published width with phase 8's budget and gates (losses falling,
+   dominance margins, the checkpoint round trip, served with the per-block
+   check), one hubert calibration step on the card held to the CPU's
+   (loss within 1e-5, gradients within 1e-4) with its forwards
+   bidirectional, and RTN / AWQ / GPTQ at W4A16 g128 on one block of each
+   with phase 10's gates and their seconds per block.  Each part logs its
+   wall time.
+17. summary.  Every kernel's ``launches`` is the count of the runs above
+   that drive the main path (the startup packing of phases 3, 4, 12, 14
+   and 16, phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
    serving and RTN packing, phase 13's two serving runs, phase 14's
-   serving runs and phase 15's Engine runs and paligemma decode for the
-   seven serving-path kernels, phase 7 for the int8 pair), never of the
-   comparisons of phases 2, 8-15 or of phase 7's repack check (its
-   quantize_pack calls are gated there, not counted).
+   serving runs, phase 15's Engine runs and paligemma decode, and phase
+   16's serving runs, causality probe, calibration serving and RTN
+   packing for the seven serving-path kernels, phase 7 for the int8
+   pair), never of the comparisons of phases 2, 8-16 or of phase 7's
+   repack check (its quantize_pack calls are gated there, not counted).
    Every phase logs its wall time.
 
 Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
@@ -309,11 +340,29 @@ MOE_LINEAR_SHAPES = tuple((m, k, n) for m in (4, 512)
                           for k, n in ((2048, 4096), (2048, 512),
                                        (4096, 2048), (6144, 6144),
                                        (6144, 1024)))
+# the quantized vlm and audio archs' linears: hubert-xlarge's q/k/v/o (1280
+# -> 1280), fc1 (1280 -> 5120) and fc2 (5120 -> 1280), paligemma-3b's q
+# (2048 -> 2048), k / v (2048 -> 256), gate / up (2048 -> 16384) and down
+# (16384 -> 2048); decode and a 512-token prefill
+VLM_AUDIO_LINEAR_SHAPES = tuple((m, k, n) for m in (4, 512)
+                                for k, n in ((1280, 1280), (1280, 5120),
+                                             (5120, 1280), (2048, 2048),
+                                             (2048, 256), (2048, 16384),
+                                             (16384, 2048)))
+# (D, G, Hkv) of hubert-xlarge's attention: D 80 is no multiple of 64 (the
+# value-by-value copies) nor of 32, so phase 2 runs it at kv16 and kv8 only
+# (kv4 is refused there, as in the reference); paligemma-3b's is gemma-2b's
+AUDIO_ATTN = (80, 1, 16)
 # (D, G, Hkv) of the dense registry's attention: phi4-mini, qwen2.5-14b,
 # stablelm-12b, gemma-2b, and of the MoE registry's: qwen3-moe-30b-a3b,
 # dbrx-132b; phase 2 runs each at kv16, kv8 and kv4
 REGISTRY_ATTN = ((128, 3, 8), (128, 5, 8), (160, 4, 8), (256, 8, 1),
                  (128, 8, 4), (128, 6, 8))
+# every ((D, G, Hkv), kv_bits) case phase 2 runs beside llama-7b's and
+# opt-125m's, in each of the four attention kernels
+ATTN_CASES = tuple((shape, kv_bits) for shape in REGISTRY_ATTN
+                   for kv_bits in (16, 8, 4)) + tuple(
+    (AUDIO_ATTN, kv_bits) for kv_bits in (16, 8))
 # Earlier times of the redesigned kernels as PERF.md records them (H100
 # 80GB HBM3, 700 W), logged beside this run's.
 _MAIN_PREFILL = "B=4 C=128 S=128 Hkv=32 G=1 D=128 kv{} offset=[0, 0, 0, 0] chunk_len=[128, 128, 128, 128]"
@@ -491,7 +540,10 @@ def main() -> None:
     # ---- 15. the recurrent families, the vlm and audio float paths --------
     phases.append(recurrent_phase(torch))
 
-    # ---- 16. summary -------------------------------------------------------
+    # ---- 16. quantized vlm and audio ---------------------------------------
+    phases.append(vlm_audio_phase(torch))
+
+    # ---- 17. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -609,7 +661,8 @@ def check_kernels(torch, timer, results) -> None:
 
     # ---- the two matmuls: every linear shape of llama-7b, decode + prefill
     g, bits = 128, 4
-    for m, k, n in LINEAR_SHAPES + OPT_LINEAR_SHAPES + MOE_LINEAR_SHAPES:
+    for m, k, n in (LINEAR_SHAPES + OPT_LINEAR_SHAPES + MOE_LINEAR_SHAPES
+                    + VLM_AUDIO_LINEAR_SHAPES):
         x = randn(m, k)
         codes = torch.randint(0, 16, (k, n), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -655,8 +708,8 @@ def check_kernels(torch, timer, results) -> None:
             f"device work alone {dev_ms:.4f} ms, host enqueue "
             f"{host_ms:.4f} ms a call")
 
-        if (m, k, n) not in LINEAR_SHAPES and (k, n) not in ((768, 3072),
-                                                             (2048, 512)):
+        if ((m, k, n) not in LINEAR_SHAPES + VLM_AUDIO_LINEAR_SHAPES
+                and (k, n) not in ((768, 3072), (2048, 512))):
             continue          # dequant_matmul: opt-125m's fc1, qwen3-moe's k
 
         want = dq.dequant_matmul_plain(x, packed, scale, zp, bits=bits,
@@ -704,7 +757,7 @@ def check_kernels(torch, timer, results) -> None:
             (12, 1, 4, (144, 144, 144, 144), 512, 64),
             (8, 1, 4, (144, 144, 144, 144), 512, 32)) + tuple(
             (hkv, gq, kv_bits, (144,) * 4, 512, hd)
-            for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
+            for (hd, gq, hkv), kv_bits in ATTN_CASES):
         kv = cache(hkv, kv_bits, s, hd)
         q = randn(b, hkv, gq, hd)
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -757,7 +810,7 @@ def check_kernels(torch, timer, results) -> None:
             (12, 1, 8, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64),
             (12, 1, 4, (16, 16, 16, 16), (128, 128, 128, 128), 144, 64)
     ) + tuple((hkv, gq, kv_bits, (16,) * 4, (128,) * 4, 144, hd)
-              for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
+              for (hd, gq, hkv), kv_bits in ATTN_CASES):
         kv = cache(hkv, kv_bits, hd=hd)
         kv = tuple(None if t is None else t[:, :sc].contiguous() for t in kv)
         q = randn(b, hkv, c, gq, hd)
@@ -960,7 +1013,7 @@ def check_paged_kernels(torch, timer, results) -> None:
             (12, 1, 4, 64, (144, 144, 144, 144), 512, 64),
             (8, 1, 4, 64, (144, 144, 144, 144), 512, 32)) + tuple(
             (hkv, gq, kv_bits, 64, (144,) * 4, 512, hd)
-            for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
+            for (hd, gq, hkv), kv_bits in ATTN_CASES):
         max_pages = max_len // ps
         pools, pt, lin = paged_case(torch, gen, lens, hkv, hd, ps, kv_bits,
                                     max_pages)
@@ -1028,7 +1081,7 @@ def check_paged_kernels(torch, timer, results) -> None:
             (12, 1, 8, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64),
             (12, 1, 4, 64, (16, 16, 16, 16), (128, 128, 128, 128), 64)
     ) + tuple((hkv, gq, kv_bits, 64, (16,) * 4, (128,) * 4, hd)
-              for hd, gq, hkv in REGISTRY_ATTN for kv_bits in (16, 8, 4)):
+              for (hd, gq, hkv), kv_bits in ATTN_CASES):
         max_pages = max_len // ps
         ends = [o + n for o, n in zip(offs, cls)]
         pools, pt, lin = paged_case(torch, gen, ends, hkv, hd, ps, kv_bits,
@@ -1183,13 +1236,18 @@ def check_int8_kernels(torch, timer, results) -> None:
 
 def check_quantize_pack(torch, timer, results) -> None:
     """quantize_pack at llama-7b's weight shapes (w4 g128 both ways, then
-    w2, w8 and per-channel w4 on 4096 x 11008), opt-125m's fc1 and the MoE
+    w2, w8 and per-channel w4 on 4096 x 11008), opt-125m's fc1, the MoE
     archs' (qwen3-moe's q, k / v, o and one expert's up / gate and down;
-    dbrx's expert up and down): packed bytes, scales and zero points equal
-    to the plain version's.  No single PyTorch call
-    computes it, so it has no library time.  Bound: 4 K N bytes read and
-    K N bits / 8 + 8 N K / g written, or 7 float32 operations an element
-    (max, min, quotient, round, add, two clamps)."""
+    dbrx's expert up and down) and the quantized vlm and audio archs'
+    (hubert-xlarge's 1280 x 1280, 1280 x 5120, 5120 x 1280; paligemma-3b's
+    2048 x 2048, 2048 x 256, 2048 x 16384, 16384 x 2048): packed bytes,
+    scales and zero points equal to the plain version's.  Each line also
+    gives the call's device work alone (the enqueue hidden behind a device
+    sleep), which tells the kernel's time from the launch floor at the
+    small shapes.  No single PyTorch call computes it, so it has no
+    library time.  Bound: 4 K N bytes read and K N bits / 8 + 8 N K / g
+    written, or 7 float32 operations an element (max, min, quotient,
+    round, add, two clamps)."""
     from repro_torch.kernels import quantize_pack as qp
     gen = torch.Generator(device="cuda").manual_seed(3)
     for k, n, bits, g in ((4096, 11008, 4, 128), (11008, 4096, 4, 128),
@@ -1198,7 +1256,10 @@ def check_quantize_pack(torch, timer, results) -> None:
                           (2048, 4096, 4, 128), (2048, 512, 4, 128),
                           (4096, 2048, 4, 128), (2048, 768, 4, 128),
                           (768, 2048, 4, 128), (6144, 10752, 4, 128),
-                          (10752, 6144, 4, 128)):
+                          (10752, 6144, 4, 128), (1280, 1280, 4, 128),
+                          (1280, 5120, 4, 128), (5120, 1280, 4, 128),
+                          (2048, 2048, 4, 128), (2048, 256, 4, 128),
+                          (2048, 16384, 4, 128), (16384, 2048, 4, 128)):
         w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
         case = f"K={k} N={n} w{bits} g{g}"
         got = qp.quantize_pack(w, bits=bits, group_size=g)
@@ -1208,8 +1269,12 @@ def check_quantize_pack(torch, timer, results) -> None:
         gs = g or k
         bms, by = bound(4 * k * n + k * n * bits // 8 + 8 * n * (k // gs),
                         7 * k * n, FP32_OPS_PER_S)
-        _record(results, "quantize_pack", case, 0.0, 0.0,
-                timer(lambda: qp.quantize_pack(w, bits=bits, group_size=g)),
+        call = lambda: qp.quantize_pack(w, bits=bits, group_size=g)
+        alone = timer(call, hide_host=True)
+        ms = timer(call)
+        log(f"[kernel] quantize_pack {case}: device work alone "
+            f"{alone:.4f} ms, host enqueue {timer.host_ms:.4f} ms a call")
+        _record(results, "quantize_pack", case, 0.0, 0.0, ms,
                 timer(lambda: qp.quantize_pack_plain(w, bits, g), reps=5),
                 None, bms, by, "src/repro/kernels/quantize_pack.py:115",
                 (k, n, bits, g) == (4096, 11008, 4, 128))
@@ -3311,12 +3376,13 @@ def moe_phase(torch) -> dict:
     return counts
 
 
-def _moe_build(torch, tag, argv, counts) -> tuple:
+def _packed_build(torch, tag, argv, counts) -> tuple:
     """Seeded random float layers RTN-packed one at a time at startup
     (quantize_pack, one launch a linear or expert matrix, counted and
     checked); returns (cfg, params)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models.layers import GATED
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3325,16 +3391,18 @@ def _moe_build(torch, tag, argv, counts) -> tuple:
         cfg, _, params, _, _ = serve.build_model(
             serve.build_parser().parse_args(argv))
         torch.cuda.synchronize()
-    want = cfg.num_layers * (4 + 3 * cfg.num_experts)
+    want = cfg.num_layers * (4 + (3 if cfg.act in GATED else 2)
+                             * max(cfg.num_experts, 1))
     full = get_config(cfg.name)
+    experts = (f"{cfg.num_experts} experts top-{cfg.top_k} of "
+               if cfg.num_experts else "")
     log(f"[{tag}] {cfg.name} x{cfg.num_layers}: d {cfg.d_model}, "
         f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads of "
-        f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-"
-        f"{cfg.top_k} of d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-        f"{cfg.norm}; {cfg.param_count()} parameters at this depth "
-        f"({full.param_count()}, {full.active_param_count()} active a "
-        f"token, at {full.num_layers} layers); init + RTN packing layer by "
-        f"layer "
+        f"{cfg.resolved_head_dim}, {experts}d_ff {cfg.d_ff} {cfg.act}, "
+        f"vocab {cfg.vocab_size}, {cfg.norm}; {cfg.param_count()} "
+        f"parameters at this depth ({full.param_count()}, "
+        f"{full.active_param_count()} active a token, at "
+        f"{full.num_layers} layers); init + RTN packing layer by layer "
         f"{time.perf_counter() - t0:.1f} s, {c['quantize_pack']} "
         f"quantize_pack launches, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -3345,20 +3413,21 @@ def _moe_build(torch, tag, argv, counts) -> tuple:
     return cfg, params
 
 
-def _moe_served(torch, tag, out, c, card) -> None:
-    """Log a W4A4 MoE serving run beside its weight-stream bound; gate its
+def _packed_served(torch, tag, out, c, card) -> None:
+    """Log a W4A4 serving run beside its weight-stream bound; gate its
     launches and its 32 valid tokens a request."""
     steps = out["step_seconds"]
     med = statistics.median(steps[1:]) * 1e3
     wb = out["weight_bytes"]
+    moe = ("; every step dequantizes every expert to float32"
+           if out["cfg"].num_experts else "")
     log(f"[{tag}] {out['cfg'].name} x{out['cfg'].num_layers} {out['tag']}: "
         f"{out['generated']} tokens in {out['seconds']:.3f} s = "
         f"{out['tokens_per_s']:.2f} tok/s (prefill of 4x128 included); first "
         f"step {steps[0]:.4f} s, decode step median {med:.2f} ms over "
         f"{len(steps) - 1} steps against the weight-stream bound "
-        f"{wb / HBM_BYTES_PER_S * 1e3:.3f} ms (packed bytes {wb} / 3.35 "
-        f"TB/s; every step dequantizes every expert to float32); KV bytes "
-        f"{out['kv_bytes']}; peak memory "
+        f"{wb / HBM_BYTES_PER_S * 1e3:.4f} ms (weight bytes {wb} / 3.35 "
+        f"TB/s{moe}); KV bytes {out['kv_bytes']}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {c}; "
         f"{card}")
     require_launched(c, ("w4a8_matmul", "flash_prefill", "flash_decode"),
@@ -3378,11 +3447,11 @@ def moe_serve(torch, card) -> dict:
     from repro_torch.launch.serve import agreement
     counts = {name: 0 for name in KERNELS}
     argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_LAYERS)
-    _, params = _moe_build(torch, "moe", argv, counts)
+    _, params = _packed_build(torch, "moe", argv, counts)
     dequant_probe(torch, params, card)
     torch.cuda.reset_peak_memory_stats()
     out, c = _counted_serve(argv, params)
-    _moe_served(torch, "moe", out, c, card)
+    _packed_served(torch, "moe", out, c, card)
     _add(counts, c)
     base = _streams(out)
     _gate_served(torch, "moe", out)
@@ -3606,10 +3675,10 @@ def dbrx_serve(torch, card) -> dict:
     argv = _with(SERVE_ARGS, arch=DBRX_ARCH, layers=DBRX_LAYERS)
     log(f"[dbrx] depth cut to {DBRX_LAYERS} of 40 layers (a float layer is "
         f"12.7 GB; 40 packed layers would be ~71 GB)")
-    _, params = _moe_build(torch, "dbrx", argv, counts)
+    _, params = _packed_build(torch, "dbrx", argv, counts)
     torch.cuda.reset_peak_memory_stats()
     out, c = _counted_serve(argv, params)
-    _moe_served(torch, "dbrx", out, c, card)
+    _packed_served(torch, "dbrx", out, c, card)
     _add(counts, c)
     paged, c = _serve_paged_run(torch, "dbrx-paged", params, base=argv,
                                 page_size=64)
@@ -4014,6 +4083,283 @@ def rec_train(torch, card) -> None:
             raise RuntimeError(f"{tag}: the loss did not fall")
         del out
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 16. quantized vlm and audio: paligemma-3b and hubert-xlarge packed W4A4
+# ---------------------------------------------------------------------------
+
+QVA_POOL_PAGES = 10       # 4 x (128 + 32 + 1) positions need 12 pages of 64
+QVA_CALIB_LAYERS = 2      # phase 8's depth and budget
+QVA_BASELINE_LAYERS = 1   # seconds per block: one block of each arch
+QVA_STEP_TOKENS = (2, 64)  # hubert's calibration step, card against CPU
+QVA_STEP_TOL = (1e-5, 1e-4)   # loss (relative), gradients (of the largest)
+QVA_DEVICE = "cuda"       # "cpu" rehearses the phase with reduced configs
+
+
+def vlm_audio_phase(torch) -> dict:
+    """Phase 16 (see the module docstring); returns its launch counts."""
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    counts = {name: 0 for name in KERNELS}
+    for part, fn in (("a", qvlm_serve), ("b", qaudio_serve),
+                     ("c", qva_calibrate)):
+        t0 = time.perf_counter()
+        _add(counts, fn(torch, card))
+        log(f"[qva] ({part}) {time.perf_counter() - t0:.1f} s")
+    log(f"[qva] phase 16 wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}; {card}")
+    return counts
+
+
+def _qva_runs(torch, tag, argv, params, counts, card) -> list:
+    """Phase 3's requests over the linear cache (the per-block check), pages
+    of 64 (streams equal the linear ones) and chunks of 64 into a
+    QVA_POOL_PAGES-page pool (must preempt and complete; the per-block
+    check over pages and chunks).  Returns the linear streams."""
+    from repro_torch.launch.serve import agreement
+    torch.cuda.reset_peak_memory_stats()
+    out, c = _counted_serve(argv, params)
+    _packed_served(torch, tag, out, c, card)
+    _add(counts, c)
+    base = _streams(out)
+    _gate_served(torch, tag, out)
+    del out
+    paged, c = _serve_paged_run(torch, f"{tag}-paged", params, base=argv,
+                                page_size=64)
+    _add(counts, c)
+    if _streams(paged) != base:
+        raise RuntimeError(f"{tag}-paged: the paged streams differ from the "
+                           f"linear ones")
+    log(f"[{tag}-paged] greedy streams equal the linear streams token for "
+        f"token")
+    del paged
+    pool, c = _serve_paged_run(torch, f"{tag}-pool", params, base=argv,
+                               page_size=64, prefill_chunk=64,
+                               num_pages=QVA_POOL_PAGES)
+    _add(counts, c)
+    if pool["preemptions"] < 1:
+        raise RuntimeError(f"{tag}-pool: the {QVA_POOL_PAGES}-page pool "
+                           f"never preempted")
+    require_launched(c, ("flash_prefill_paged", "flash_decode_paged"),
+                     f"{tag}-pool")
+    log(f"[{tag}-pool] every request completed; greedy agreement with the "
+        f"linear streams {agreement(base, _streams(pool)):.4f} (reported, "
+        f"not gated: chunked and resumed prefill change the row count of "
+        f"float reductions, and at a4 an ulp can move a code)")
+    _gate_served(torch, f"{tag}-pool", pool, page_size=64, chunk=64)
+    del pool
+    torch.cuda.empty_cache()
+    return base
+
+
+def qvlm_serve(torch, card) -> dict:
+    """(a) paligemma-3b W4A4 g128 kv8 at published width and depth (18
+    layers, MQA of 8 heads of 256, GeGLU d_ff 16,384, a tied 257,216-token
+    head), text prompts as the reference serves it: linear, pages, the
+    pool, then kv4 paged with the per-block check."""
+    counts = {name: 0 for name in KERNELS}
+    argv = _with(SERVE_ARGS, arch=VLM_ARCH)
+    _, params = _packed_build(torch, "qvlm", argv, counts)
+    _qva_runs(torch, "qvlm", argv, params, counts, card)
+    kv4, c = _serve_paged_run(torch, "qvlm-kv4", params, base=argv, kvbits=4,
+                              max_new=8, page_size=64, prefill_chunk=64)
+    _add(counts, c)
+    require_launched(c, ("flash_prefill_paged", "flash_decode_paged"),
+                     "qvlm-kv4")
+    _gate_served(torch, "qvlm-kv4", kv4, page_size=64, chunk=64)
+    del kv4, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def qaudio_serve(torch, card) -> dict:
+    """(b) hubert-xlarge W4A4 g128 at published width and depth (48 layers,
+    16 heads of 80, LayerNorm, GELU, sinusoidal positions, a tied 504-token
+    head), served as the reference serves it: the causal token trunk.  At
+    kv8 and kv16: linear, pages, the pool.  Gates beside them: kv4 refused
+    (80 % 32 != 0); position 0's logits bit for bit unchanged when token 5
+    of the prompt changes, position 6's moved (causal, as the
+    reference's packed hubert)."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch import serve
+    from repro_torch.serve.quantized import QuantizedModel
+    counts = {name: 0 for name in KERNELS}
+    argv = _with(SERVE_ARGS, arch=AUDIO_ARCH)
+    cfg, params = _packed_build(torch, "qaudio", argv, counts)
+    for kv in (8, 16):
+        _qva_runs(torch, f"qaudio-kv{kv}", _with(argv, kvbits=kv), params,
+                  counts, card)
+    refused = []
+    for call in (lambda: QuantizedModel(cfg, QuantConfig(kv_bits=4),
+                                        device=QVA_DEVICE),
+                 lambda: serve.build_model(serve.build_parser().parse_args(
+                     _with(argv, kvbits=4)), params)):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(str(e))
+    log(f"[qaudio] kv4 at head_dim {cfg.resolved_head_dim}: refused "
+        f"{len(refused)} of 2 ({refused[:1]})")
+    if len(refused) != 2 or not all("head_dim % 32" in e for e in refused):
+        raise RuntimeError("qaudio: kv4 at head_dim 80 was not refused")
+    model = QuantizedModel(cfg, QuantConfig(w_bits=4, a_bits=4,
+                                            group_size=128, kv_bits=8),
+                           device=QVA_DEVICE)
+    gen = torch.Generator().manual_seed(16)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+                         dtype=torch.int32)
+    moved = toks.clone()
+    moved[0, 5] = (moved[0, 5] + 1) % cfg.vocab_size
+    zero = torch.zeros((1,), dtype=torch.int32)
+    c = {name: 0 for name in KERNELS}
+    with torch.no_grad(), counted(c):
+        a, b = (model.prefill_chunk(params, {"tokens": t},
+                                    model.init_cache(1, 256), zero)[0]
+                for t in (toks, moved))
+        torch.cuda.synchronize()
+    require_launched(c, ("w4a8_matmul", "flash_prefill"), "qaudio-causal")
+    _add(counts, c)
+    d6 = ((a[0, 6] - b[0, 6]).abs().max() / a.abs().max()).item()
+    log(f"[qaudio-causal] token 5 changed: positions 0-4 bit-equal "
+        f"{torch.equal(a[0, :5], b[0, :5])}, position 6 moved by {d6:.3e} "
+        f"of the largest logit (the reference's packed hubert is causal; "
+        f"its calibration and float forward are not)")
+    if not (torch.equal(a[0, :5], b[0, :5]) and d6 > 1e-4):
+        raise RuntimeError("qaudio: the packed trunk is not causal")
+    del params, model, a, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def qva_calibrate(torch, card) -> dict:
+    """(c) AffineQuant W4A4 g128 kv8 of QVA_CALIB_LAYERS layers of each
+    arch at published width with phase 8's budget and gates (its packed
+    tree through the checkpoints, served with the per-block check); the
+    hubert calibration step on the card against the CPU; the RTN / AWQ /
+    GPTQ baselines at W4A16 g128 on QVA_BASELINE_LAYERS block of each,
+    with phase 10's gates and their seconds per block."""
+    counts = {name: 0 for name in KERNELS}
+    ppl: dict = {}
+    base_ppl: dict = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        tag = "qvlm" if arch == VLM_ARCH else "qaudio"
+        calib_argv = _with(CALIB_ARGS, arch=arch, layers=QVA_CALIB_LAYERS)
+        log(f"[{tag}-calibrate] {arch} widths, depth cut to "
+            f"{QVA_CALIB_LAYERS} layers; 32 x 512 calibration tokens, batch "
+            f"8, 3 epochs, alpha 0.1 (hubert bidirectional, as the "
+            f"reference calibrates it); {card}")
+        out = calibrate_run(torch, f"{tag}-calibrate-a", calib_argv,
+                            _with(SERVE_ARGS, arch=arch,
+                                  layers=QVA_CALIB_LAYERS),
+                            CALIB_RUNS["a"], counts)
+        rep = out["report"]
+        ppl[arch] = {"fp": rep["fp_ppl"], "affine w4a4": rep["quant_ppl"]}
+        del out
+        torch.cuda.empty_cache()
+        if arch == AUDIO_ARCH:
+            hubert_step_vs_cpu(torch, card)
+        baselines(torch, arch,
+                  _with(CALIB_ARGS, arch=arch, layers=QVA_BASELINE_LAYERS),
+                  _with(SERVE_ARGS, arch=arch, layers=QVA_BASELINE_LAYERS),
+                  counts, base_ppl)
+        torch.cuda.empty_cache()
+    for depth, table in ((QVA_CALIB_LAYERS, ppl),
+                         (QVA_BASELINE_LAYERS, base_ppl)):
+        for arch, row in table.items():
+            log(f"[qva] {arch} x{depth} held-out 16 x 512 perplexity "
+                f"(random weights; hubert: its frame loss on the tokens' "
+                f"embeddings): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row.items()))
+    return counts
+
+
+def hubert_step_vs_cpu(torch, card) -> None:
+    """One AffineQuant W4A4 g128 calibration step of a hubert-xlarge block
+    at published width on QVA_STEP_TOKENS tokens (seeded init and inputs),
+    on the card and on the CPU: the loss within QVA_STEP_TOL[0] relative,
+    every gradient leaf within QVA_STEP_TOL[1] of its largest magnitude;
+    on the card the block's quantized and float forwards are
+    bidirectional (a new last token moves position 0's output by more
+    than 1e-4 of the largest) and the same block under a causal mask does
+    not move it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.init import init_block
+    cfg = get_config(AUDIO_ARCH)
+    qcfg = QuantConfig(w_bits=4, a_bits=4, group_size=128, lwc=True)
+    ccfg = cal.CalibConfig(epochs=1, alpha=0.1)
+    block = init_block(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, t = QVA_STEP_TOKENS
+    x = torch.randn((b, t, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    pos = torch.arange(t)[None, :]
+    qp = cal.init_block_quant_params(block, cfg, qcfg, ccfg)
+
+    def step(dev):
+        to = lambda tree: {k: to(v) if isinstance(v, dict) else
+                           (v.to(dev) if torch.is_tensor(v) else v)
+                           for k, v in tree.items()}
+        bp, q, xd = to(block), to(qp), x.to(dev)
+        masks = cal._masks(cal._specs_from(q), 1, ccfg, dev)
+        leaves = [p.detach().requires_grad_(True)
+                  for _, p in cal._learnable(q)]
+        paths = [path for path, _ in cal._learnable(q)]
+        for path, p in zip(paths, leaves):
+            node = q
+            for k in path[:-1]:
+                node = node[k]
+            node[path[-1]] = p
+        with torch.no_grad():
+            target = cal.fp_block_forward(bp, xd, cfg, pos.to(dev))
+        out = cal.quant_block_forward(bp, q, xd, cfg, qcfg, masks,
+                                      pos.to(dev))
+        loss = torch.mean(torch.square(out - target))
+        grads = torch.autograd.grad(loss, leaves)
+        return bp, q, masks, loss.item(), [g.cpu() for g in grads]
+
+    t0 = time.perf_counter()
+    bp, q, masks, loss_d, grads_d = step(QVA_DEVICE)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, _, loss_c, grads_c = step("cpu")
+    t_cpu = time.perf_counter() - t0
+    dl = abs(loss_d / loss_c - 1)
+    dg = max(((gd - gc).abs().max() / gc.abs().max().clamp_min(1e-30)).item()
+             for gd, gc in zip(grads_d, grads_c))
+    xd = x.to(QVA_DEVICE)
+    moved = xd.clone()
+    moved[:, -1] = torch.randn((b, cfg.d_model), generator=torch.Generator()
+                               .manual_seed(2)).to(QVA_DEVICE)
+    pcuda = pos.to(QVA_DEVICE)
+    opens = {}
+    with torch.no_grad():
+        for name, c in (("bidirectional", cfg),
+                        ("causal", dataclasses.replace(cfg, causal=True))):
+            for kind, fwd in (
+                    ("quant", lambda z: cal.quant_block_forward(
+                        bp, q, z, c, qcfg, masks, pcuda)),
+                    ("float", lambda z: cal.fp_block_forward(bp, z, c,
+                                                             pcuda))):
+                y0, y1 = fwd(xd), fwd(moved)
+                opens[name, kind] = ((y1[:, 0] - y0[:, 0]).abs().max()
+                                     / y0.abs().max()).item()
+    log(f"[qaudio-step] one W4A4 g128 calibration step of a hubert-xlarge "
+        f"block on {b} x {t} tokens: card {t_dev:.3f} s, CPU {t_cpu:.3f} s; "
+        f"loss {loss_d:.6e} vs {loss_c:.6e} (rel {dl:.3e}, tol "
+        f"{QVA_STEP_TOL[0]:.0e}); largest gradient difference {dg:.3e} of "
+        f"the leaf's largest (tol {QVA_STEP_TOL[1]:.0e}); a new last token "
+        f"moves position 0's output by {opens} of the largest; {card}")
+    if not (dl <= QVA_STEP_TOL[0] and dg <= QVA_STEP_TOL[1]):
+        raise RuntimeError("qaudio-step: the card's calibration step departs "
+                           "from the CPU's")
+    if not (min(opens["bidirectional", k] for k in ("quant", "float")) > 1e-4
+            and max(opens["causal", k] for k in ("quant", "float")) == 0.0):
+        raise RuntimeError("qaudio-step: the calibration forwards do not "
+                           "attend as the config's mask says")
 
 
 if __name__ == "__main__":

@@ -71,7 +71,8 @@ def block_linear_inputs(block_params: dict, x: torch.Tensor, cfg,
     if cfg.rope_theta > 0:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    attn = attn_lib.attention(q, k, v).reshape(b, t, -1)
+    attn = attn_lib.attention(q, k, v, causal=cfg.causal,
+                              window=cfg.window).reshape(b, t, -1)
     caps["attn_out"] = attn
     x = x + attn @ block_params["wo"]
     h2 = layers.apply_norm(block_params["ln_mlp"], x, cfg.norm)

@@ -22,14 +22,18 @@ and transformed activations ``h_t = (h - delta) @ inv(A1)`` after each norm
 differentiable (the STE through Q, autograd through the solve), and the
 optimizer is the reference's hand-rolled Adam with per-path learning rates.
 
-The dense (OPT and llama) and MoE families.  An MoE block's experts are
+The dense (OPT and llama), MoE, VLM and audio families.  The VLM and audio
+trunks calibrate as the reference calibrates them: on token embeddings
+(never image prefixes or frames), under the config's mask (causal for
+paligemma, bidirectional for hubert: ``cfg.causal``) and window.  An MoE
+block's experts are
 stacked (E, K, N) leaves: each expert gets its own LWC logits and its own
 grid, the ``ln_mlp`` transform reaches the router and every expert's gate
 and up projections, and the quantized block runs its activation-quantized
 MoE input through ``moe.apply_moe`` (so at a4 calibration quantizes the MoE
 input where packed serving does not: the reference's difference, kept).
-A no-RoPE (OPT) model gets its sinusoidal positions at the embedding
-(``transformer.embed``).
+A no-RoPE model (OPT, hubert) gets its sinusoidal positions at the
+embedding (``transformer.embed``).
 The reference runs each step under ``jax.jit``, where XLA turns a division
 by a constant into a multiply by its reciprocal; the port divides wherever
 the reference's eager code does, so its step matches the reference called
@@ -290,7 +294,8 @@ def quant_block_forward(block_params: dict, qp: dict, x: torch.Tensor, cfg,
     if cfg.rope_theta > 0:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    attn = attn_lib.attention(q, k, v).reshape(b, t, -1)
+    attn = attn_lib.attention(q, k, v, causal=cfg.causal,
+                              window=cfg.window).reshape(b, t, -1)
     x = x + aq(attn) @ ws["wo"]
 
     h2 = aq(act_transform(
@@ -310,7 +315,8 @@ def quant_block_forward(block_params: dict, qp: dict, x: torch.Tensor, cfg,
 
 def fp_block_forward(block_params: dict, x: torch.Tensor, cfg,
                      positions: torch.Tensor) -> torch.Tensor:
-    return transformer.apply_block_full(block_params, x, cfg, positions)[0]
+    return transformer.apply_block_full(block_params, x, cfg, positions,
+                                        window=cfg.window)[0]
 
 
 # ---------------------------------------------------------------------------

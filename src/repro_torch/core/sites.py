@@ -1,5 +1,5 @@
-"""Transform-site placement (paper §3.3 / §4.1) for the dense and MoE
-families.
+"""Transform-site placement (paper §3.3 / §4.1) for the dense, MoE, VLM and
+audio families (the VLM's and audio's blocks are the dense block's).
 
 * ``ln_attn``: after the attention norm, feeding q/k/v.  Full in
   weight-only mode; diagonal when activations are quantized, so it merges
@@ -22,32 +22,25 @@ from __future__ import annotations
 from repro_torch.core.affine import AffineSpec
 from repro_torch.models.layers import GATED
 
-QUANTIZED_FAMILIES = ("dense", "moe")
+QUANTIZED_FAMILIES = ("dense", "moe", "vlm", "audio")
 NO_QUANTIZED_PATH = ("the reference has no quantized path for the mamba2 "
                      "and griffin families (its calibration and packed "
                      "serving read the transformer block's ln_attn and wq, "
                      "which their blocks do not have); the port serves and "
                      "trains them through the float Model")
-QUANTIZED_VLM_AUDIO = ("quantized vlm and audio (calibration and packed "
-                       "serving) are not ported yet: ROADMAP queue 1 item 5, "
-                       "quantized vlm and audio; the port serves them "
-                       "through the float Model")
 
 
 def require_quantizable(cfg) -> None:
     """Refuse a family that calibration, the baselines and
     ``QuantizedModel`` do not take: mamba2 and griffin, which the reference
-    cannot quantize either, and vlm and audio, not ported yet."""
-    if cfg.family in ("mamba2", "griffin"):
-        raise NotImplementedError(f"family={cfg.family!r}: "
-                                  f"{NO_QUANTIZED_PATH}")
+    cannot quantize either."""
     if cfg.family not in QUANTIZED_FAMILIES:
         raise NotImplementedError(f"family={cfg.family!r}: "
-                                  f"{QUANTIZED_VLM_AUDIO}")
+                                  f"{NO_QUANTIZED_PATH}")
 
 
 def block_sites(cfg, weight_only: bool) -> list:
-    """Transform sites of one dense or MoE block."""
+    """Transform sites of one transformer block (dense, MoE, VLM, audio)."""
     require_quantizable(cfg)
     ln_kind = "full" if weight_only else "diagonal"
     shift = not weight_only

@@ -22,7 +22,16 @@ launcher does.  RTN's packed tree is the float tree on the RTN grid through
 GPTQ write no packed tree, and the report says why: AWQ's per-linear
 ``diag(1/s)`` puts the rows of one group on different grids, and GPTQ's
 grid moves column by column.  ``--device`` defaults to ``cuda`` and raises
-when no CUDA device exists.
+when no CUDA device exists; ``--reduced`` takes the arch's smoke config
+(2 layers, d 64), for the CPU.
+
+``--arch paligemma-3b`` and ``hubert-xlarge`` calibrate as the reference's
+``quantize_dense_model`` does: on the calibration tokens' embeddings (no
+image prefix, no frames), paligemma causally, hubert bidirectionally.  An
+audio model has no next-token loss: its perplexities are of its frame
+cross entropy on the held-out tokens' embeddings, labelled with the tokens
+themselves (the reference's launcher stops there on a ``KeyError``, its
+loss reading frame embeddings).
 """
 from __future__ import annotations
 
@@ -61,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="llama-mini")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut depth to this many layers (0 = all)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="calibrate the reduced smoke config of --arch")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint dir of a float tree (optional)")
     ap.add_argument("--method", default="affine",
@@ -92,7 +103,14 @@ def load_float_params(ckpt: str, cfg, qcfg: QuantConfig, device) -> dict:
 
 @torch.no_grad()
 def eval_ppl(model, params: dict, tokens) -> float:
-    return math.exp(float(model.loss(params, {"tokens": tokens})))
+    """exp of the next-token loss; audio's frame loss on the tokens'
+    embeddings, each labelled with its own token."""
+    if model.cfg.family == "audio":
+        tokens = torch.as_tensor(tokens).to(model.device)
+        batch = {"embeds": params["embed"][tokens.long()], "labels": tokens}
+    else:
+        batch = {"tokens": tokens}
+    return math.exp(float(model.loss(params, batch)))
 
 
 def calibrate(args: argparse.Namespace, params=None) -> dict:
@@ -106,6 +124,8 @@ def calibrate(args: argparse.Namespace, params=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     require_quantizable(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)

@@ -43,12 +43,17 @@ from it, and prints the reference's greedy-agreement lines: fp vs packed,
 and with ``--calibrate`` also the fake-quant tree served through ``Model``
 (fp vs quant, quant vs packed).  Both hold the whole float tree in memory.
 
-The registry's other families serve through ``--fp`` only:
-``--arch mamba2-1.3b`` and ``recurrentgemma-2b`` (prompts prefilled at
-their exact lengths, the recurrent states and griffin's attention ring
-buffer in the linear cache) and ``paligemma-3b`` (text prompts, no image
-prefix).  ``hubert-xlarge`` is an encoder and has no decode path; the
-packed path refuses all four (``core/sites.py``).
+``--arch paligemma-3b`` and ``hubert-xlarge`` serve packed (and
+calibrated, ``--calibrate``) as the causal token trunk, as the reference's
+``QuantizedModel`` serves them: text prompts, no image prefix, causal
+attention for hubert too.  ``paligemma-3b`` also serves through ``--fp``
+(text prompts); ``hubert-xlarge`` is an encoder and its float ``Model`` has
+no decode path, so ``--fp`` and ``--compare-fp`` refuse it.  The recurrent
+families serve through ``--fp`` only: ``--arch mamba2-1.3b`` and
+``recurrentgemma-2b`` (prompts prefilled at their exact lengths, the
+recurrent states and griffin's attention ring buffer in the linear cache);
+the packed path refuses them (``core/sites.py``).  ``--reduced`` serves
+the arch's tiny smoke config (2 layers, d 64), for the CPU.
 """
 from __future__ import annotations
 
@@ -139,6 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="llama-mini")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut depth to this many layers (0 = all)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the reduced smoke config of --arch")
     ap.add_argument("--wbits", type=int, default=4)
     ap.add_argument("--group", type=int, default=128)
     ap.add_argument("--abits", type=int, default=4)
@@ -191,14 +198,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def arch_config(args: argparse.Namespace):
-    """The arch's config, depth cut to ``--layers``; an encoder, and
-    without ``--fp`` a family the packed path does not take, are refused.
-    Also turns TF32 off: the float32 products left to PyTorch (every float
-    linear, the vocab head, activation transforms) stay full float32."""
+    """The arch's config (``--reduced``: its smoke config), depth cut to
+    ``--layers``; an encoder through the float ``Model`` (``--fp``), which
+    has no decode path, and without ``--fp`` a family the packed path does
+    not take, are refused.  Also turns TF32 off: the float32 products left
+    to PyTorch (every float linear, the vocab head, activation transforms)
+    stay full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
-    if cfg.family == "audio":
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.fp and cfg.family == "audio":
         raise ValueError(f"--arch {args.arch}: {ENCODER_ONLY}")
     if not args.fp:
         require_quantizable(cfg)
@@ -381,7 +392,11 @@ def report(args: argparse.Namespace, out: dict) -> dict:
           f"{steps[0]:.4f} s; decode step median "
           f"{statistics.median(steps[1:] or steps) * 1e3:.2f} ms over "
           f"{len(steps) - 1} steps")
-    if out["fake"] is not None:
+    if out["fake"] is not None and out["cfg"].family == "audio":
+        print(f"[serve] the fake-quant simulation runs through the float "
+              f"Model, which has no decode path for an encoder: not "
+              f"compared")
+    elif out["fake"] is not None:
         packed, sim = packed_and_fake_logits(
             out["model"], out["params"], out["fake"], out["prompts"],
             [r.out_tokens for r in out["requests"]])

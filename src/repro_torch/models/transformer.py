@@ -243,6 +243,13 @@ class ServingTrunk:
     tile over the linear cache (the paged ones take one page per tile), as
     the reference's ``flash_block_kv`` does.
 
+    The trunk embeds tokens (a no-RoPE model adds its sinusoidal
+    positions) and attends causally for every family, as the reference's
+    ``QuantizedModel`` serves its vlm and audio trees: packed hubert is a
+    causal token trunk although its float forward is bidirectional over
+    frames.  The float ``Model`` refuses what the reference's refuses
+    (audio decode) and adds the VLM's prefix.
+
     The cache is updated in place: ``prefill_chunk`` and ``decode_step``
     write into the cache they are given and return it.  A write past
     ``max_len`` (or into an unallocated page) is dropped (slot ``max_len -

@@ -1,4 +1,5 @@
-"""Packed low-bit serving of a dense or MoE model (the paper's deployment).
+"""Packed low-bit serving of a dense, MoE, VLM or audio model (the paper's
+deployment).
 
 Every linear of the trunk is a :class:`QTensor`.  At ``a_bits < 16`` each
 matmul goes through ``ops.quant_matmul`` (per-token dynamic activation
@@ -25,6 +26,12 @@ from its codes to float32 and the MoE half runs on the float activations
 through the capacity dispatch, at every ``a_bits``: the reference's one
 float-activation site (a quantized grouped-expert kernel is future work
 there).
+
+paligemma (vlm) and hubert (audio) serve as the causal token trunk, as the
+reference's ``QuantizedModel`` serves them: token embeddings in (hubert's
+plus sinusoidal positions), no image prefix, and causal attention even for
+hubert, whose calibration and float forward are bidirectional.  Padded and
+chunked prefill and the paged cache are the dense trunk's.
 
 Quantization conserves poison: a non-finite K/V row (kv4: block) gives a
 NaN scale.

@@ -339,7 +339,7 @@ def test_quantize_dense_model_beats_rtn():
 def test_other_families_and_baselines_refuse():
     """The families without a quantized path refuse in calibration and in
     the baselines: mamba2 and griffin, which the reference cannot quantize
-    either, and vlm and audio, naming their ROADMAP item; the baselines
+    either (vlm and audio take the dense block's sites); the baselines
     refuse MoE too, being dense-only as the reference's whole-model drivers
     are (which are ported: only a method they do not have refuses)."""
     from repro_torch.core.baselines import quantize_model_baseline
@@ -349,11 +349,17 @@ def test_other_families_and_baselines_refuse():
     toks = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="no quantized path"):
         quantize_model_baseline({}, cfg, QuantConfig(), toks, "gptq")
-    vlm = dataclasses.replace(get_config("llama-micro"), family="vlm")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        sites.block_sites(vlm, True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        quantize_model_baseline({}, vlm, QuantConfig(), toks, "gptq")
+    griffin = dataclasses.replace(get_config("llama-micro"), family="griffin")
+    with pytest.raises(NotImplementedError, match="no quantized path"):
+        sites.block_sites(griffin, True)
+    with pytest.raises(NotImplementedError, match="no quantized path"):
+        quantize_model_baseline({}, griffin, QuantConfig(), toks, "gptq")
+    dense = sites.block_sites(get_config("llama-micro"), True)
+    for family in ("vlm", "audio"):
+        other = dataclasses.replace(get_config("llama-micro"), family=family)
+        assert sites.block_sites(other, True) == dense
+        assert sites.quantized_weights(other) == sites.quantized_weights(
+            get_config("llama-micro"))
     with pytest.raises(NotImplementedError, match="dense-only"):
         quantize_model_baseline({}, get_config("qwen3-moe-30b-a3b").reduced(),
                                 QuantConfig(), toks, "gptq")

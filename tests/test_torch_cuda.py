@@ -2,7 +2,7 @@
 
 Every test here needs a CUDA device and skips without one.  Shapes are
 small and ragged on purpose (M not a tile multiple, N not a multiple of
-64, K tails, G = 5 query heads per KV head, D = 32, 72 and 128, pages of
+64, K tails, G = 5 query heads per KV head, D = 32, 72, 80 and 128, pages of
 8, 16, 24 and 64 so a 32-position tile spans pages or a page spans tiles) — the
 full-width shapes run in ``chip_smoke.py``.  A paged kernel must equal its
 linear kernel bit for bit on the same contents.
@@ -363,6 +363,74 @@ def test_flash_prefill_kernel(dev, offs, cls, g, kv8):
     got = flash_prefill(q, kv[0], kv[1], off, cl, *kv[2:])
     want = flash_prefill_plain(q, kv[0], kv[1], off, cl, *kv[2:], block_kv=32)
     assert _err(got, want) < 1e-5
+
+
+# The quantized vlm and audio archs' linears (hubert-xlarge 1280 -> 1280,
+# 1280 -> 5120, 5120 -> 1280; paligemma-3b 2048 -> 2048, 2048 -> 256,
+# 2048 -> 16384, 16384 -> 2048) at w4 g128, in both bodies of each matmul.
+VLM_AUDIO_LINEARS = [(1280, 1280), (1280, 5120), (5120, 1280), (2048, 2048),
+                     (2048, 256), (2048, 16384), (16384, 2048)]
+
+
+@pytest.mark.parametrize("k,n", VLM_AUDIO_LINEARS)
+def test_matmuls_at_vlm_audio_linear_shapes(dev, k, n):
+    """w4a8_matmul equals its plain version bit for bit and dequant_matmul
+    is within 1e-5 of its own, at M = 4 (decode bodies) and M = 24 (tile
+    bodies); the rows at M = 4 equal the first rows at M = 24."""
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((24, k)).astype(np.float32)).to(dev)
+    w = _weight(rng, k, n, 4, 128, dev)
+    q24 = w4a8_matmul(x, *w, bits=4, group_size=128, a_bits=4)
+    d24 = dequant_matmul(x, *w, bits=4, group_size=128)
+    assert torch.equal(q24, quant_matmul_plain(x, *w, bits=4, group_size=128,
+                                               a_bits=4))
+    assert _err(d24, dequant_matmul_plain(x, *w, bits=4, group_size=128)) < 1e-5
+    assert torch.equal(w4a8_matmul(x[:4], *w, bits=4, group_size=128,
+                                   a_bits=4), q24[:4])
+    assert torch.equal(dequant_matmul(x[:4], *w, bits=4, group_size=128),
+                       d24[:4])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_attention_kernels_at_head_dim_80(dev, kv_bits, paged):
+    """hubert-xlarge's attention shape (Hkv 16, G 1, D 80: the
+    value-by-value copies, no multiple of 64 or 32): decode and a 20-row
+    prefill chunk within 1e-5 of the plain versions, over the linear cache
+    or pages of 16 (bit for bit the linear kernels on the same
+    contents)."""
+    rng = np.random.default_rng(80 + kv_bits + paged)
+    hkv, d, c = 16, 80, 20
+    lens = [0, 1, 33, 90]
+    pools, pt, lin = _paged_case(rng, lens, hkv, d, 16, kv_bits, 6, dev)
+    q = torch.from_numpy(rng.standard_normal((4, hkv, 1, d)).astype(
+        np.float32)).to(dev)
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qc = torch.from_numpy(rng.standard_normal((4, hkv, c, 1, d)).astype(
+        np.float32)).to(dev)
+    off = torch.clamp_min(cur - c, 0)
+    cl = cur - off
+    if paged:
+        got = flash_decode_paged(q, pools[0], pools[1], pt, cur, *pools[2:])
+        want = flash_decode_paged_plain(q, pools[0], pools[1], pt, cur,
+                                        *pools[2:])
+        gotc = flash_prefill_paged(qc, pools[0], pools[1], pt, off, cl,
+                                   *pools[2:])
+        wantc = flash_prefill_paged_plain(qc, pools[0], pools[1], pt, off,
+                                          cl, *pools[2:])
+        assert torch.equal(got, flash_decode(q, lin[0], lin[1], cur,
+                                             *lin[2:]))
+        assert torch.equal(gotc, flash_prefill(qc, lin[0], lin[1], off, cl,
+                                               *lin[2:]))
+    else:
+        got = flash_decode(q, lin[0], lin[1], cur, *lin[2:])
+        want = flash_decode_plain(q, lin[0], lin[1], cur, *lin[2:],
+                                  block_kv=32)
+        gotc = flash_prefill(qc, lin[0], lin[1], off, cl, *lin[2:])
+        wantc = flash_prefill_plain(qc, lin[0], lin[1], off, cl, *lin[2:],
+                                    block_kv=32)
+    assert _err(got, want) < 1e-5 and _err(gotc, wantc) < 1e-5
+    assert not got[0].any()
 
 
 @pytest.mark.parametrize("kv_bits", [16, 8, 4])

@@ -283,29 +283,44 @@ def test_encoder_only_refusals():
             ["--arch", AUDIO, "--reduced", "--device", "cpu"]))
 
 
-def test_quantized_vlm_and_audio_refuse_citing_the_roadmap():
-    """Calibration, the packer, ``QuantizedModel``, the baselines and the
-    serve CLI's packed path refuse vlm and audio, naming the ROADMAP item
-    that ports them."""
+def test_remaining_refusals_hold():
+    """Quantized vlm and audio are ported; what stays refused is what the
+    reference refuses: quantizing mamba2 and griffin (calibration, the
+    packer, ``QuantizedModel``, the baselines, the calibrate and serve
+    CLIs' packed paths), the float audio model's decode, and ``--fp`` on
+    audio in the serve CLI."""
     from repro_torch.core.baselines import quantize_model_baseline
     from repro_torch.core.calibration import CalibConfig, quantize_dense_model
+    from repro_torch.launch import calibrate as calibrate_cli
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve.quantized import QuantizedModel, quantize_lm_packed
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    item = "queue 1 item 5, quantized vlm and audio"
-    cfg = get_config(VLM).reduced()
-    for call in (
-            lambda: quantize_dense_model({}, cfg, QuantConfig(),
-                                         CalibConfig(), toks),
-            lambda: quantize_lm_packed({}, cfg, QuantConfig()),
-            lambda: QuantizedModel(cfg, QuantConfig(), device="cpu"),
-            lambda: quantize_model_baseline({}, cfg, QuantConfig(), toks,
-                                            "gptq"),
-            lambda: sites.quantized_weights(cfg),
-            lambda: sites.block_sites(get_config(AUDIO), False),
-            lambda: serve_cli.main(["--arch", VLM, "--device", "cpu"])):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b"):
+        cfg = get_config(arch).reduced()
+        for call in (
+                lambda: quantize_dense_model({}, cfg, QuantConfig(),
+                                             CalibConfig(), toks),
+                lambda: quantize_lm_packed({}, cfg, QuantConfig()),
+                lambda: QuantizedModel(cfg, QuantConfig(), device="cpu"),
+                lambda: quantize_model_baseline({}, cfg, QuantConfig(), toks,
+                                                "gptq"),
+                lambda: sites.block_sites(cfg, False),
+                lambda: calibrate_cli.main(["--arch", arch, "--reduced",
+                                            "--device", "cpu"]),
+                lambda: serve_cli.main(["--arch", arch, "--reduced",
+                                        "--device", "cpu"])):
+            with pytest.raises(NotImplementedError, match="no quantized path"):
+                call()
+    _, tm, _, tp = _setup(AUDIO)
+    with pytest.raises(ValueError, match=ENCODER_ONLY):
+        tm.decode_step(tp, toks[:, :1], tm.init_cache(1, 8))
+    for flag in ("--fp", "--compare-fp"):
+        with pytest.raises(ValueError, match=ENCODER_ONLY):
+            serve_cli.main(["--arch", AUDIO, "--reduced", flag, "--device",
+                            "cpu"])
+    for cfg in (get_config(VLM), get_config(AUDIO)):
+        assert [s.name for s in sites.block_sites(cfg, False)] == [
+            "ln_attn", "vo", "ln_mlp"]
 
 
 # ---------------------------------------------------------------------------

@@ -189,14 +189,16 @@ def test_kv_quantize_conserves_nan():
 
 def test_unported_features_raise(setup):
     """The other families are refused: mamba2 and griffin have no
-    quantized path (nor in the reference), vlm and audio name their ROADMAP
-    item (3-bit weights serve: ``test_torch_dense_archs.py``)."""
+    quantized path (nor in the reference); vlm and audio serve
+    (``test_torch_quantized_vlm_audio.py``), and so do 3-bit weights
+    (``test_torch_dense_archs.py``)."""
     tcfg = setup[1]
-    with pytest.raises(NotImplementedError, match="no quantized path"):
-        QuantizedModel(dataclasses.replace(tcfg, family="mamba2"),
-                       QuantConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        QuantizedModel(dataclasses.replace(tcfg, family="audio"),
+    for family in ("mamba2", "griffin"):
+        with pytest.raises(NotImplementedError, match="no quantized path"):
+            QuantizedModel(dataclasses.replace(tcfg, family=family),
+                           QuantConfig(), device="cpu")
+    for family in ("vlm", "audio"):
+        QuantizedModel(dataclasses.replace(tcfg, family=family),
                        QuantConfig(), device="cpu")
 
 
