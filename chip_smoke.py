@@ -61,7 +61,14 @@ failure raises (exit code != 0).
    weight shapes, and the four attention kernels at hubert's Hkv 16, G 1,
    D 80 (kv16 and kv8: 32 does not divide 80, so kv4 is refused there);
    paligemma's attention is gemma-2b's.  Every quantize_pack line also
-   gives the call's device work alone.
+   gives the call's device work alone (beside PERF.md's time of the
+   kernel before its redesign and the timing floor, a one-element fill
+   timed the same way), and qwen3-moe's 128 experts of 2048 x 768 g128
+   packed in one launch must equal 128 single calls byte for byte.  Every
+   dequant_matmul line names the body that ran (decode, or the tile body
+   with its tile and the number of blocks K is cut across) and gives its
+   time as a multiple of torch.matmul's; at M = 512 the rows at M = 4
+   (decode) and M = 64 must equal the same rows of the M = 512 product.
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -216,13 +223,14 @@ failure raises (exit code != 0).
    kernel and plain paths are counted in every per-block check and gated
    at MOE_FLIP_SHARE): (a) qwen3-moe-30b-a3b W4A4 g128 kv8 at published
    width and depth (48 layers, 128 experts top-8), seed-0 weights packed
-   layer by layer at startup (18,624 quantize_pack launches, one a
-   matrix), phase 3's requests over the linear cache, pages of 64
-   (streams equal: whole-prompt admission prefills the same rows in both
-   layouts, so the per-call expert capacities match), chunks of 64 into a
-   10-page pool (must preempt and complete; capacity competes per chunk,
-   so its streams are logged, not held) and kv4 paged, the per-block
-   check on the linear and kv4 runs; tok/s and the decode step beside the
+   layer by layer at startup (336 quantize_pack launches, one a linear,
+   a layer's 128 experts of a projection in one), phase 3's requests over
+   the linear cache, pages of 64 (streams equal: whole-prompt admission
+   prefills the same rows in both layouts, so the per-call expert
+   capacities match), chunks of 64 into a 10-page pool (must preempt and
+   complete; capacity competes per chunk, so its streams are logged, not
+   held) and kv4 paged, the per-block check on the linear and kv4 runs;
+   tok/s and the decode step beside the
    packed bytes' stream time, weight / KV bytes and peak memory; (b) the
    float qwen3-moe at published width, depth cut to 8 (22.43 GB), linear
    == paged, the per-block check of the kv16 kernels; (c) AffineQuant
@@ -292,6 +300,8 @@ failure raises (exit code != 0).
    packing for the seven serving-path kernels, phase 7 for the int8
    pair), never of the comparisons of phases 2, 8-16 or of phase 7's
    repack check (its quantize_pack calls are gated there, not counted).
+   dequant_matmul's launches are also split by the body that ran
+   (``launches_by_body`` in the kernels JSON line).
    Every phase logs its wall time.
 
 Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
@@ -327,6 +337,17 @@ KERNELS = {"w4a8_matmul": "w4a8_matmul.cu",        # name -> source file
            "flash_prefill_paged": "flash_prefill.cu",
            "int8_matmul": "int8_matmul.cu", "w8a8_matmul": "int8_matmul.cu",
            "quantize_pack": "quantize_pack.cu"}
+# dequant_matmul's launches again, by the body of csrc/dequant_matmul.cu
+# that ran (repro_torch.kernels._lib.LAUNCHES counts both)
+DQ_BODIES = ("dequant_matmul/decode", "dequant_matmul/tile",
+             "dequant_matmul/tile_split")
+COUNTED = tuple(KERNELS) + DQ_BODIES
+
+
+def zero_counts() -> dict:
+    return {name: 0 for name in COUNTED}
+
+
 # (M, K, N) of llama-7b's linears: decode (M 4) and a 512-token prefill
 LINEAR_SHAPES = ((4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
                  (512, 4096, 11008))
@@ -377,6 +398,18 @@ EARLIER_MS = {
     "flash_decode_paged " + _MAIN_DECODE_PAGED.format(8): 0.0871,
     "flash_decode_paged " + _MAIN_DECODE_PAGED.format(4): 0.0904,
     "dequant_matmul M=4 K=4096 N=11008 w4 g128": 0.3616,
+    # dequant_matmul's earlier tile body (64x64 tiles, 4x4 a thread,
+    # synchronous slabs, no K cut), as PERF.md records it
+    "dequant_matmul M=512 K=4096 N=11008 w4 g128": 1.8693,
+    "dequant_matmul M=512 K=768 N=3072 w4 g128": 0.1057,
+    "dequant_matmul M=512 K=2048 N=512 w4 g128": 0.1761,
+    "dequant_matmul M=512 K=1280 N=1280 w4 g128": 0.1293,
+    "dequant_matmul M=512 K=1280 N=5120 w4 g128": 0.2817,
+    "dequant_matmul M=512 K=5120 N=1280 w4 g128": 0.4987,
+    "dequant_matmul M=512 K=2048 N=2048 w4 g128": 0.2025,
+    "dequant_matmul M=512 K=2048 N=256 w4 g128": 0.1770,
+    "dequant_matmul M=512 K=2048 N=16384 w4 g128": 1.3505,
+    "dequant_matmul M=512 K=16384 N=2048 w4 g128": 1.5613,
     "w4a8_matmul M=4 K=4096 N=4096 w4 g128 a4": 0.0803,
     "w4a8_matmul M=4 K=4096 N=11008 w4 g128 a4": 0.0829,
     "w4a8_matmul M=4 K=11008 N=4096 w4 g128 a4": 0.2104,
@@ -394,6 +427,18 @@ EARLIER_MS = {
     "w8a8_matmul M=4 K=4096 N=11008": 0.0520,
     "w8a8_matmul M=4 K=11008 N=4096": 0.0582,
     "w8a8_matmul M=512 K=4096 N=11008": 0.2173,
+}
+# quantize_pack's device work alone before its redesign (PERF.md; H100
+# 80GB HBM3, 700 W), logged beside this run's
+EARLIER_ALONE = {
+    "K=4096 N=11008 w4 g128": 0.0963, "K=2048 N=4096 w4 g128": 0.0301,
+    "K=2048 N=512 w4 g128": 0.0105, "K=4096 N=2048 w4 g128": 0.0299,
+    "K=2048 N=768 w4 g128": 0.0117, "K=768 N=2048 w4 g128": 0.0116,
+    "K=6144 N=10752 w4 g128": 0.1340, "K=10752 N=6144 w4 g128": 0.1333,
+    "K=1280 N=1280 w4 g128": 0.0123, "K=1280 N=5120 w4 g128": 0.0257,
+    "K=5120 N=1280 w4 g128": 0.0260, "K=2048 N=2048 w4 g128": 0.0202,
+    "K=2048 N=256 w4 g128": 0.0093, "K=2048 N=16384 w4 g128": 0.0760,
+    "K=16384 N=2048 w4 g128": 0.0754,
 }
 
 
@@ -547,6 +592,13 @@ def main() -> None:
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
+    bodies = {name.split("/")[1]: counts[name] for name in DQ_BODIES}
+    log(f"[summary] dequant_matmul launches on the main path by body: "
+        f"{bodies} (decode M <= 8; tile and tile with K cut across blocks "
+        f"M > 8)")
+    if sum(bodies.values()) != counts["dequant_matmul"]:
+        raise RuntimeError(f"dequant_matmul's launches by body {bodies} do "
+                           f"not add up to {counts['dequant_matmul']}")
     kernels = []
     for name in KERNELS:
         r = results[name]
@@ -563,6 +615,8 @@ def main() -> None:
                          "tpu": r["replaces"], "max_err": r["max_abs_err"],
                          "kernel_ms": r["ms"],
                          "bound_us": r["bound_ms"] * 1e3})
+        if name == "dequant_matmul":
+            kernels[-1]["launches_by_body"] = bodies
     log(f"[total] {time.perf_counter() - t_start:.1f} s; phase 7 traced "
         f"{retries} call(s) again after the profiler lost their device "
         f"records")
@@ -715,26 +769,39 @@ def check_kernels(torch, timer, results) -> None:
         want = dq.dequant_matmul_plain(x, packed, scale, zp, bits=bits,
                                        group_size=g)
         got = dq.dequant_matmul(x, packed, scale, zp, bits=bits, group_size=g)
+        body = dq.plan(m, k, n)
         if m > 4:
-            # rows do not depend on M: decode body (M = 4) vs tile body
-            if not torch.equal(dq.dequant_matmul(x[:4], packed, scale, zp,
-                                                 bits=bits, group_size=g),
-                               got[:4]):
-                raise RuntimeError(f"dequant_matmul {k}->{n}: rows at M=4 "
-                                   f"differ from the same rows at M={m}")
-            log(f"[kernel] dequant_matmul {k}->{n}: rows at M=4 equal the "
-                f"first 4 rows at M={m} (bit-equal)")
+            # rows do not depend on M or on the body: decode (M = 4), and
+            # tile bodies at 64 rows and at M
+            for rows in (4, 64):
+                if not torch.equal(dq.dequant_matmul(x[:rows], packed, scale,
+                                                     zp, bits=bits,
+                                                     group_size=g),
+                                   got[:rows]):
+                    raise RuntimeError(f"dequant_matmul {k}->{n}: rows at "
+                                       f"M={rows} differ from the same rows "
+                                       f"at M={m}")
+            log(f"[kernel] dequant_matmul {k}->{n}: rows at M=4 "
+                f"({dq.plan(4, k, n)['body']}) and M=64 "
+                f"({dq.plan(64, k, n)['body']}) equal the first rows at M={m} "
+                f"({body}) (bit-equal)")
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = 1e-4 * want.abs().max().item()
         bms, by = bound(nbytes, 2 * m * k * n, FP32_OPS_PER_S)
-        _record(results, "dequant_matmul", case, err, tol,
-                timer(lambda: dq.dequant_matmul(x, packed, scale, zp,
-                                                bits=bits, group_size=g)),
+        ms = timer(lambda: dq.dequant_matmul(x, packed, scale, zp, bits=bits,
+                                             group_size=g))
+        _record(results, "dequant_matmul", case, err, tol, ms,
                 timer(lambda: dq.dequant_matmul_plain(
                     x, packed, scale, zp, bits=bits, group_size=g), reps=5),
                 lib_ms, bms, by, "src/repro/kernels/dequant_matmul.py:80",
                 main)
+        shape = ("" if body["body"] == "decode" else
+                 f" {body['bm']}x{body['bn']} in {body['chunks']} K chunk(s)")
+        log(f"[kernel] dequant_matmul {case}: {body['body']} body{shape}; "
+            f"{ms / lib_ms:.3f}x the time of torch.matmul "
+            f"({'faster' if ms <= lib_ms else 'SLOWER'}), {bms / ms:.1%} of "
+            f"the bound")
         del x, codes, packed, scale, zp, w, want, got
 
     # ---- attention over the llama-7b cache: B 4, S 512, D 128, and one
@@ -1247,9 +1314,17 @@ def check_quantize_pack(torch, timer, results) -> None:
     small shapes.  No single PyTorch call computes it, so it has no
     library time.  Bound: 4 K N bytes read and K N bits / 8 + 8 N K / g
     written, or 7 float32 operations an element (max, min, quotient,
-    round, add, two clamps)."""
+    round, add, two clamps).  The floor of the device-work timing (a
+    one-element fill timed the same way) is logged first; then
+    qwen3-moe's 128 experts of 2048 x 768 g128 packed in one launch must
+    equal 128 single calls byte for byte, with its bound, device work
+    alone and host enqueue beside the 128 single calls' wall time."""
     from repro_torch.kernels import quantize_pack as qp
     gen = torch.Generator(device="cuda").manual_seed(3)
+    one = torch.empty(1, device="cuda")
+    log(f"[kernel] quantize_pack timing floor: a one-element fill takes "
+        f"{timer(lambda: one.zero_(), hide_host=True):.4f} ms of device "
+        f"work alone, {timer(lambda: one.zero_()):.4f} ms after a flush")
     for k, n, bits, g in ((4096, 11008, 4, 128), (11008, 4096, 4, 128),
                           (4096, 11008, 2, 128), (4096, 11008, 8, 128),
                           (4096, 11008, 4, 0), (768, 3072, 4, 128),
@@ -1272,13 +1347,42 @@ def check_quantize_pack(torch, timer, results) -> None:
         call = lambda: qp.quantize_pack(w, bits=bits, group_size=g)
         alone = timer(call, hide_host=True)
         ms = timer(call)
+        earlier = EARLIER_ALONE.get(case)
+        earlier = ("" if earlier is None else
+                   f" (PERF.md, earlier kernel: {earlier:.4f} ms)")
         log(f"[kernel] quantize_pack {case}: device work alone "
-            f"{alone:.4f} ms, host enqueue {timer.host_ms:.4f} ms a call")
+            f"{alone:.4f} ms{earlier}, {bms / alone:.1%} of the bound; host "
+            f"enqueue {timer.host_ms:.4f} ms a call")
         _record(results, "quantize_pack", case, 0.0, 0.0, ms,
                 timer(lambda: qp.quantize_pack_plain(w, bits, g), reps=5),
                 None, bms, by, "src/repro/kernels/quantize_pack.py:115",
                 (k, n, bits, g) == (4096, 11008, 4, 128))
         del w, got, want
+    # a layer's stacked experts, one launch (serve/quantized.py::rtn_pack)
+    b, k, n, g = 128, 2048, 768, 128
+    w = torch.randn((b, k, n), generator=gen, device="cuda") * 0.02
+    got = qp.quantize_pack(w, bits=4, group_size=g)
+    t0 = time.perf_counter()
+    single = [qp.quantize_pack(w[i], bits=4, group_size=g) for i in range(b)]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    for i, one_mat in enumerate(single):
+        for a_, c_ in zip(got, one_mat):
+            _require_equal(torch, "quantize_pack", f"expert {i} of {b}",
+                           a_[i], c_)
+    case = f"B={b} K={k} N={n} w4 g{g}"
+    bms, _ = bound(b * (4 * k * n + k * n // 2 + 8 * n * (k // g)),
+                   7 * b * k * n, FP32_OPS_PER_S)
+    call = lambda: qp.quantize_pack(w, bits=4, group_size=g)
+    alone = timer(call, hide_host=True)
+    ms = timer(call)
+    log(f"[kernel] quantize_pack {case} (qwen3-moe's experts of a layer, "
+        f"one launch): equal to {b} single calls byte for byte; device work "
+        f"alone {alone:.4f} ms, {bms / alone:.1%} of the bound {bms:.4g} ms "
+        f"(bytes); flushed {ms:.4f} ms; host enqueue {timer.host_ms:.4f} ms "
+        f"a call; the {b} single calls took {single_s * 1e3:.2f} ms of wall "
+        f"time, synchronize included")
+    del w, got, single
 
 
 # ---------------------------------------------------------------------------
@@ -1455,23 +1559,24 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
         rows = caches[0].num_pages * page_size
     else:
         caches = [m.init_cache(b, 512) for m in models]
-    stats = {k: {"agree": 0, "rows": 0} for k in ("block", "logit")}
+    # counts and each comparison's largest difference stay on the card
+    # until the end: no host sync per block, so the host enqueues ahead
+    stats = {k: {"agree": [], "rows": 0} for k in ("block", "logit")}
     if cfg.num_experts:
-        stats["flip"] = {"agree": 0, "rows": 0}
-    worst = [0.0, ""]
+        stats["flip"] = {"agree": [], "rows": 0}
+    worst, wheres = [], []
 
     def compare(ya, yp, where, kind="block"):
         if kind == "block" and cfg.num_experts:
             ra, rp = (m.routes.pop() for m in models)
-            stats["flip"]["agree"] += int((ra != rp).any(-1).sum())
+            stats["flip"]["agree"].append((ra != rp).any(-1).sum())
             stats["flip"]["rows"] += ra.shape[0]
         d = (ya - yp).abs().amax(-1).flatten()
         rel = d / yp.abs().amax(-1).flatten()
-        stats[kind]["agree"] += int((rel <= ROW_TOL).sum())
+        stats[kind]["agree"].append((rel <= ROW_TOL).sum())
         stats[kind]["rows"] += rel.numel()
-        r = rel.max().item()
-        if not r <= worst[0]:
-            worst[:] = [r, where]
+        worst.append(rel.max())
+        wheres.append(where)
 
     def logits(ya, yp, where):
         compare(models[0]._head(params, ya), models[1]._head(params, yp),
@@ -1548,8 +1653,13 @@ def blockwise_check(torch, out, prompts, gen, steps: int = 8,
         raise RuntimeError("the kernel and plain paths wrote different K/V")
     if prefix and [page_digest(torch, cc, shared) for cc in caches] != digest:
         raise RuntimeError("blockwise_check: a shared page was written")
-    return ({k: v["agree"] / v["rows"] for k, v in stats.items()},
-            {k: v["rows"] for k, v in stats.items()}, tuple(worst))
+    rel = torch.stack(worst).cpu()
+    nan = torch.isnan(rel).nonzero()
+    i = int(nan[0, 0]) if len(nan) else int(rel.argmax())
+    return ({k: int(torch.stack(v["agree"]).sum()) / v["rows"]
+             for k, v in stats.items()},
+            {k: v["rows"] for k, v in stats.items()},
+            (float(rel[i]), wheres[i]))
 
 
 _RECORDING: dict = {}
@@ -1814,7 +1924,7 @@ def engine_contract(torch, params, prompts3, greedy3) -> dict:
     cfg, qcfg, params, model, _ = serve.build_model(args, params)
     out = {"cfg": cfg, "qcfg": qcfg, "params": params, "model": model}
     card = card_name(torch)
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     base = prefix_phase(torch, out, counts, card)
     faults_phase(torch, out, counts, card, base, prompts3)
     sampling_phase(torch, out, counts, card, prompts3, greedy3)
@@ -2367,8 +2477,7 @@ def calibrate_run(torch, tag, calib_argv, serve_argv, flags, counts,
     main = ("w4a8_matmul",) if flags["abits"] < 16 else ("dequant_matmul",)
     for c in (c_mem, c_disk):
         require_launched(c, main + ("flash_prefill", "flash_decode"), tag)
-        for name in KERNELS:
-            counts[name] += c[name]
+        _add(counts, c)
     del disk
     prompts = torch.from_numpy(np.stack(mem["prompts"]))
     gen = torch.tensor(streams, dtype=torch.int32)
@@ -2412,7 +2521,7 @@ def calibrate_phase(torch, ppl: dict) -> dict:
     log(f"[calibrate] llama-7b widths, depth cut to {CALIB_LAYERS} of 32 "
         f"layers; 32 x 512 calibration tokens (the paper: 128 x 2048), batch "
         f"8, 3 epochs, alpha 0.1; float32, no TF32")
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     params = None
     for run, flags in CALIB_RUNS.items():
         out = calibrate_run(torch, f"calibrate-{run}", CALIB_ARGS,
@@ -2449,7 +2558,7 @@ def opt_phase(torch, ppl: dict) -> dict:
         f"heads of 64, d_ff 3072, vocab 50272), random seeded weights; "
         f"calibration as phase 8 (32 x 512 tokens, batch 8, 3 epochs, alpha "
         f"0.1); {card}")
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     ppl["opt-125m"] = {}
     # (a) W4A4 g128: diagonal LayerNorm sites (shifts into the norms' and
     # the q/k/v / fc1 biases) and 12 headwise vo sites; linear kv8, then the
@@ -2515,7 +2624,7 @@ def opt_phase(torch, ppl: dict) -> dict:
 
 
 def _add(counts: dict, c: dict) -> None:
-    for name in KERNELS:
+    for name in COUNTED:
         counts[name] += c[name]
 
 
@@ -2534,7 +2643,7 @@ def baselines(torch, arch, calib_argv, serve_argv, counts, ppl,
     ``launch/calibrate.py``.  Gates: finite perplexities; AWQ's layer-output
     MSE on each linear's calibration inputs at most RTN's (alpha 0 is
     RTN); GPTQ's summed over each block below RTN's; RTN's packed tree
-    (``quantize_pack``, one launch a linear) byte-equal to
+    (``quantize_pack``, one launch a linear's stack of layers) byte-equal to
     ``quantize_codes`` and dequantizing bit for bit to the fake-quant RTN
     tree, then served through dequant_matmul and held end to end against
     the plain versions."""
@@ -2548,7 +2657,7 @@ def baselines(torch, arch, calib_argv, serve_argv, counts, ppl,
     row = ppl.setdefault(arch, {})
     for method in BASELINES:
         tag = f"{arch}-{method}"
-        c = {name: 0 for name in KERNELS}
+        c = zero_counts()
         with counted(c):
             out = calibrate.calibrate(calibrate.build_parser().parse_args(
                 _with(calib_argv, method=method, **flags)), params)
@@ -2609,13 +2718,14 @@ def baselines(torch, arch, calib_argv, serve_argv, counts, ppl,
 
 
 def _rtn_packed(torch, tag, out, lin, c, quantize_codes) -> None:
-    """RTN's packed tree: one quantize_pack launch a linear, the bytes of
-    ``quantize_codes``, dequantized equal to the fake-quant tree."""
+    """RTN's packed tree: one quantize_pack launch a linear's stack over
+    the layers, the bytes of ``quantize_codes``, dequantized equal to the
+    fake-quant tree."""
     from repro_torch.core.calibration import _get
     cfg, qcfg = out["cfg"], out["qcfg"]
-    if c["quantize_pack"] != cfg.num_layers * len(lin):
+    if c["quantize_pack"] != len(lin):
         raise RuntimeError(f"{tag}: {c['quantize_pack']} quantize_pack "
-                           f"launches, not one per linear")
+                           f"launches, not one per stacked linear")
     for k in lin:
         qt, w, fq = (_get(out[t]["layers"], k)
                      for t in ("packed", "params", "fake"))
@@ -2749,7 +2859,7 @@ def serve_float(torch, tag, argv, params, packed_streams=None,
     ``packed_streams``.  Returns the launch counts."""
     from repro_torch.launch.serve import agreement
     t0 = time.perf_counter()
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     lin = _float_run(torch, tag, argv, params, counts)
     base = _streams(lin)
     if packed_streams is not None:
@@ -2832,7 +2942,7 @@ def registry_phase(torch) -> dict:
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     card = card_name(torch)
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     for arch, layers in REGISTRY.items():
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -2996,7 +3106,7 @@ def train_phase(torch) -> dict:
     import tempfile
     t_phase = time.perf_counter()
     card = card_name(torch)
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         train_opt(torch, Path(tmp), card)
@@ -3278,7 +3388,7 @@ def trained_mini(torch, arch: str, card: str) -> dict:
     if not (math.isfinite(w4a4) and w4a4 < 10 * fp):
         raise RuntimeError(f"{arch}: the W4A4 AffineQuant perplexity {w4a4} "
                            f"is not finite and below 10x fp's {fp}")
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     if arch != "opt-mini":
         return counts
     # AffineQuant W4A4 g128 kv8 packed, served through the Engine
@@ -3355,7 +3465,7 @@ def moe_phase(torch) -> dict:
     """Phase 14 (see the module docstring); returns its launch counts."""
     t_phase = time.perf_counter()
     card = card_name(torch)
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     t0 = time.perf_counter()
     _add(counts, moe_serve(torch, card))
     log(f"[moe] (a) {time.perf_counter() - t0:.1f} s")
@@ -3378,21 +3488,22 @@ def moe_phase(torch) -> dict:
 
 def _packed_build(torch, tag, argv, counts) -> tuple:
     """Seeded random float layers RTN-packed one at a time at startup
-    (quantize_pack, one launch a linear or expert matrix, counted and
-    checked); returns (cfg, params)."""
+    (quantize_pack, one launch a linear, a layer's experts of a projection
+    in one, counted and checked); returns (cfg, params)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.layers import GATED
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    c = {name: 0 for name in KERNELS}
+    c = zero_counts()
     with counted(c):
         cfg, _, params, _, _ = serve.build_model(
             serve.build_parser().parse_args(argv))
         torch.cuda.synchronize()
-    want = cfg.num_layers * (4 + (3 if cfg.act in GATED else 2)
-                             * max(cfg.num_experts, 1))
+    # one launch a stacked leaf: a layer's linears one by one, its experts
+    # of each projection in one batched launch
+    want = cfg.num_layers * (4 + (3 if cfg.act in GATED else 2))
     full = get_config(cfg.name)
     experts = (f"{cfg.num_experts} experts top-{cfg.top_k} of "
                if cfg.num_experts else "")
@@ -3403,12 +3514,12 @@ def _packed_build(torch, tag, argv, counts) -> tuple:
         f"parameters at this depth ({full.param_count()}, "
         f"{full.active_param_count()} active a token, at "
         f"{full.num_layers} layers); init + RTN packing layer by layer "
-        f"{time.perf_counter() - t0:.1f} s, {c['quantize_pack']} "
+        f"{time.perf_counter() - t0:.3f} s, {c['quantize_pack']} "
         f"quantize_pack launches, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if c["quantize_pack"] != want:
         raise RuntimeError(f"{tag}: {c['quantize_pack']} quantize_pack "
-                           f"launches, not one per matrix ({want})")
+                           f"launches, not one per stacked leaf ({want})")
     _add(counts, c)
     return cfg, params
 
@@ -3445,7 +3556,7 @@ def moe_serve(torch, card) -> dict:
     (must preempt and complete) and kv4 paged, each with the per-block
     check (routing flips counted)."""
     from repro_torch.launch.serve import agreement
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_LAYERS)
     _, params = _packed_build(torch, "moe", argv, counts)
     dequant_probe(torch, params, card)
@@ -3527,7 +3638,7 @@ def moe_float(torch, card) -> dict:
     per-block check of the kv16 attention kernels against the plain
     versions (routing flips counted)."""
     from repro_torch.launch import serve
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_FP_LAYERS)
     log(f"[fp-moe] depth cut to {MOE_FP_LAYERS} of {MOE_LAYERS} layers "
         f"(float32 experts: 2.42 GB a layer)")
@@ -3558,7 +3669,7 @@ def moe_calibrate(torch, card) -> dict:
     """(c) AffineQuant W4A4 g128 kv8 and W4A16 g128 calibration of two
     qwen3-moe layers at published width with phase 8's budget and gates;
     each packed tree through the npz checkpoints and served."""
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     calib_argv = _with(CALIB_ARGS, arch=MOE_ARCH, layers=MOE_CALIB_LAYERS)
     serve_argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_CALIB_LAYERS)
     log(f"[moe-calibrate] {MOE_ARCH} widths, depth cut to "
@@ -3671,7 +3782,7 @@ def moe_train(torch, card) -> None:
 def dbrx_serve(torch, card) -> dict:
     """(e) dbrx-132b W4A4 g128 kv8 at published width, depth cut: linear
     and pages of 64 (streams equal), the per-block check."""
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     argv = _with(SERVE_ARGS, arch=DBRX_ARCH, layers=DBRX_LAYERS)
     log(f"[dbrx] depth cut to {DBRX_LAYERS} of 40 layers (a float layer is "
         f"12.7 GB; 40 packed layers would be ~71 GB)")
@@ -3717,7 +3828,7 @@ def recurrent_phase(torch) -> dict:
     """Phase 15 (see the module docstring); returns its launch counts."""
     t_phase = time.perf_counter()
     card = card_name(torch)
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     for arch in REC_ARCHS:
         t0 = time.perf_counter()
         _add(counts, rec_serve(torch, arch, card))
@@ -3823,7 +3934,7 @@ def rec_serve(torch, arch: str, card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
     max_len = max(lens) + REC_NEW + 8
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     torch.cuda.reset_peak_memory_stats()
     reqs, secs, steps, eng = _run_engine(torch, model, params, prompts,
                                          max_len, counts)
@@ -3907,8 +4018,8 @@ def vlm_serve(torch, card) -> dict:
         (b, pn, cfg.d_model))).astype(np.float32)).to(REC_DEVICE)
     text = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, VLM_TEXT)
                                          ).astype(np.int32))
-    counts = {name: 0 for name in KERNELS}
-    c = {name: 0 for name in KERNELS}
+    counts = zero_counts()
+    c = zero_counts()
     toks, seq, dec_s = [], [], []
     with counted(c), torch.no_grad():
         torch.cuda.synchronize()
@@ -3955,7 +4066,7 @@ def vlm_serve(torch, card) -> dict:
     # the Engine on text-only prompts
     prompts = [rng.integers(0, cfg.vocab_size, VLM_TEXT).astype(np.int32)
                for _ in range(4)]
-    c = {name: 0 for name in KERNELS}
+    c = zero_counts()
     torch.cuda.reset_peak_memory_stats()
     reqs, secs, steps, _ = _run_engine(torch, model, params, prompts, 256,
                                        c)
@@ -4101,7 +4212,7 @@ def vlm_audio_phase(torch) -> dict:
     """Phase 16 (see the module docstring); returns its launch counts."""
     t_phase = time.perf_counter()
     card = card_name(torch)
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     for part, fn in (("a", qvlm_serve), ("b", qaudio_serve),
                      ("c", qva_calibrate)):
         t0 = time.perf_counter()
@@ -4158,7 +4269,7 @@ def qvlm_serve(torch, card) -> dict:
     layers, MQA of 8 heads of 256, GeGLU d_ff 16,384, a tied 257,216-token
     head), text prompts as the reference serves it: linear, pages, the
     pool, then kv4 paged with the per-block check."""
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     argv = _with(SERVE_ARGS, arch=VLM_ARCH)
     _, params = _packed_build(torch, "qvlm", argv, counts)
     _qva_runs(torch, "qvlm", argv, params, counts, card)
@@ -4184,7 +4295,7 @@ def qaudio_serve(torch, card) -> dict:
     from repro_torch.core.quantizer import QuantConfig
     from repro_torch.launch import serve
     from repro_torch.serve.quantized import QuantizedModel
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     argv = _with(SERVE_ARGS, arch=AUDIO_ARCH)
     cfg, params = _packed_build(torch, "qaudio", argv, counts)
     for kv in (8, 16):
@@ -4212,7 +4323,7 @@ def qaudio_serve(torch, card) -> dict:
     moved = toks.clone()
     moved[0, 5] = (moved[0, 5] + 1) % cfg.vocab_size
     zero = torch.zeros((1,), dtype=torch.int32)
-    c = {name: 0 for name in KERNELS}
+    c = zero_counts()
     with torch.no_grad(), counted(c):
         a, b = (model.prefill_chunk(params, {"tokens": t},
                                     model.init_cache(1, 256), zero)[0]
@@ -4239,7 +4350,7 @@ def qva_calibrate(torch, card) -> dict:
     hubert calibration step on the card against the CPU; the RTN / AWQ /
     GPTQ baselines at W4A16 g128 on QVA_BASELINE_LAYERS block of each,
     with phase 10's gates and their seconds per block."""
-    counts = {name: 0 for name in KERNELS}
+    counts = zero_counts()
     ppl: dict = {}
     base_ppl: dict = {}
     for arch in (VLM_ARCH, AUDIO_ARCH):

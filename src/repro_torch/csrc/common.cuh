@@ -1,6 +1,5 @@
-// Shared helpers of the matmul kernels: the packed-code loaders, the 4x4
-// byte transpose and the whole-row activation pre-pass of w4a8_matmul and
-// w8a8_matmul.
+// Shared helpers of the matmul kernels: the 4x4 byte transpose and the
+// whole-row activation pre-pass of w4a8_matmul and w8a8_matmul.
 //
 // Packed layout (repro_torch/core/packing.py): the 8 codes of K rows
 // 8u .. 8u+7 of column n sit little-endian in the BITS bytes
@@ -12,22 +11,6 @@
 #include <stdint.h>
 
 namespace aq {
-
-// The 64-bit lane holding the 8 codes of unit `u`, column `n`.
-template <int BITS>
-__device__ __forceinline__ uint64_t load_unit(const uint8_t* __restrict__ packed,
-                                              long long u, int n, int N) {
-  uint64_t lane = 0;
-#pragma unroll
-  for (int b = 0; b < BITS; ++b)
-    lane |= (uint64_t)packed[(u * BITS + b) * (long long)N + n] << (8 * b);
-  return lane;
-}
-
-template <int BITS>
-__device__ __forceinline__ int unit_code(uint64_t lane, int j) {
-  return (int)((lane >> (j * BITS)) & ((1u << BITS) - 1u));
-}
 
 // Four row words (byte j = column j) -> four column words (byte i = row i).
 __device__ __forceinline__ void transpose4x4(const uint32_t r[4],

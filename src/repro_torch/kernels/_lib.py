@@ -7,8 +7,9 @@ into ``repro_torch/build/<hash of sources and flags>/``, so a checkout that
 holds only the sources builds everything it needs.  Nothing here runs at
 import time: the CPU-only test lane imports every module.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.  It and
-the library handle are the package's only global state.
+``LAUNCHES`` counts, per kernel, the wrapper calls that launched it, and
+``dequant_matmul``'s again by the body that ran (``dequant_matmul/<body>``).
+It and the library handle are the package's only global state.
 """
 from __future__ import annotations
 
@@ -37,7 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"dequant_matmul": 0, "w4a8_matmul": 0, "flash_decode": 0,
             "flash_prefill": 0, "flash_decode_paged": 0,
             "flash_prefill_paged": 0, "int8_matmul": 0, "w8a8_matmul": 0,
-            "quantize_pack": 0}
+            "quantize_pack": 0,
+            # dequant_matmul's launches again, by the body that ran
+            "dequant_matmul/decode": 0, "dequant_matmul/tile": 0,
+            "dequant_matmul/tile_split": 0}
 BUILD_INFO: dict = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +49,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # x, packed, scale, zp, out, workspace, M, K, N, bits, group, stream
     "aq_dequant_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    # M, K, N -> the bytes of aq_dequant_matmul's workspace
+    "aq_dequant_workspace_bytes": [_I] * 3,
+    # M, K, N -> body | BM << 8 | BN << 16 | K chunks << 24
+    "aq_dequant_plan": [_I] * 3,
     # x, workspace, workspace bytes, packed, scale, zp, out, M, K, N, bits,
     # group, a_bits, stream
     "aq_w4a8_matmul": [_P, _P, _L] + [_P] * 4 + [_I] * 6 + [_P],
@@ -72,8 +80,8 @@ _SIGNATURES = {
     # M, K, N, x_q, w_q -> the body int8_matmul runs (0 decode, 1 wgmma,
     # 2 mma_sync)
     "aq_int8_body": [_I] * 3 + [_P] * 2,
-    # w, packed, scale, zp, K, N, bits, group, stream
-    "aq_quantize_pack": [_P] * 4 + [_I] * 4 + [_P],
+    # w, packed, scale, zp, B, K, N, bits, group, stream
+    "aq_quantize_pack": [_P] * 4 + [_I] * 5 + [_P],
 }
 _LIB = None
 
@@ -159,7 +167,8 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = _L if name.endswith("_bytes") else ctypes.c_int
+            fn.restype = (_L if name.endswith(("_bytes", "_plan"))
+                          else ctypes.c_int)
         _LIB = handle
     return _LIB
 

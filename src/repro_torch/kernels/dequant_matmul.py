@@ -6,6 +6,8 @@ tensors and launches ``csrc/dequant_matmul.cu`` for CUDA tensors.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.packing import unpack
@@ -16,6 +18,12 @@ KERNEL_BITS = (2, 4, 8)
 # (csrc/dequant_matmul.cu).
 SPLIT = 512
 DECODE_MMAX = 8
+# csrc/dequant_matmul.cu's bodies, by the number aq_dequant_plan returns:
+# decode (M <= 8), tile (M > 8, each block walks all of K) and tile_split
+# (M > 8, K cut across blocks at split boundaries, the splits added by a
+# second launch).  The wrapper counts launches of each body in
+# _lib.LAUNCHES["dequant_matmul/<body>"].
+BODIES = ("decode", "tile", "tile_split")
 
 
 def dequant_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -68,11 +76,33 @@ def dequant_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     m, k = x.shape
     n = packed.shape[-1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    # the decode body's (M <= 8) per-split partial sums
-    splits = -(-k // SPLIT)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if m <= DECODE_MMAX and splits > 1 else None)
+    if y.numel() == 0:
+        return y
+    # the per-split partial sums of the decode body (M <= 8) or of a tile
+    # body that cuts K across blocks
+    nbytes = _workspace_bytes(m, k, n)
+    part = (torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+            if nbytes else None)
     _lib.launch("dequant_matmul", x.data_ptr(), packed.data_ptr(),
                 scale.data_ptr(), zp.data_ptr(), y.data_ptr(), _lib.ptr(part),
                 m, k, n, bits, g)
+    _lib.LAUNCHES["dequant_matmul/" + plan(m, k, n)["body"]] += 1
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes(m: int, k: int, n: int) -> int:
+    """The bytes of the kernel's float32 workspace, as its C entry lays it
+    out (csrc/dequant_matmul.cu: workspace_floats)."""
+    return _lib.lib().aq_dequant_workspace_bytes(m, k, n)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, k: int, n: int) -> dict:
+    """The body ``dequant_matmul`` runs at (M, K, N) on the card: its name
+    (:data:`BODIES`), the tile (bm x bn; 0 for decode) and the K chunks
+    the tile body's grid cuts K into (csrc/dequant_matmul.cu:
+    choose_tile, which reads the card's SM count)."""
+    code = _lib.lib().aq_dequant_plan(m, k, n)
+    return {"body": BODIES[code & 0xFF], "bm": (code >> 8) & 0xFF,
+            "bn": (code >> 16) & 0xFF, "chunks": code >> 24}

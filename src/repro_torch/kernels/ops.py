@@ -93,11 +93,12 @@ def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 def quantize_pack(w: torch.Tensor, *, bits: int, group_size: int,
                   mode: str = "auto"):
-    """w (K, N) float -> (packed, scale, zp), per-group asymmetric RTN codes
-    packed along K; ``group_size`` 0 is one K-wide group."""
+    """w (K, N) float, or a (B, K, N) stack -> (packed, scale, zp),
+    per-group asymmetric RTN codes packed along K; ``group_size`` 0 is one
+    K-wide group.  A stack is one kernel launch."""
     _check_mode(mode)
     if mode == "plain" or bits == 3:
-        return qp.quantize_pack_plain(w, bits, group_size)
+        return qp.quantize_pack_plain_batch(w, bits, group_size)
     return qp.quantize_pack(w, bits=bits, group_size=group_size)
 
 

@@ -5,7 +5,9 @@
 grid (``core.quantizer``, the same ops in the same order), packed
 little-endian along K (:func:`repro_torch.core.packing.pack`).
 :func:`quantize_pack` runs it for CPU tensors and launches
-``csrc/quantize_pack.cu`` for CUDA tensors.
+``csrc/quantize_pack.cu`` for CUDA tensors; a (B, K, N) stack of weights
+(a layer's experts, a stack of layers) is one launch, and on the CPU the
+plain version one matrix at a time (:func:`quantize_pack_plain_batch`).
 
 K/V vectors are stored as two signed int4 codes per byte along D
 (:func:`repro_torch.core.packing.pack_nibbles`) with one bfloat16 scale per
@@ -89,15 +91,33 @@ def quantize_pack_plain(w: torch.Tensor, bits: int, group_size: int
     return pack(codes, bits), scale, zp
 
 
+def quantize_pack_plain_batch(w: torch.Tensor, bits: int, group_size: int
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """:func:`quantize_pack_plain` of a (K, N) weight, or of each matrix of
+    a (B, K, N) stack, stacked: (B, K // 8 * bits, N) and (B, K // g, N)."""
+    if w.ndim == 2:
+        return quantize_pack_plain(w, bits, group_size)
+    k, n = w.shape[1:]
+    g = check_group(k, group_size)
+    if w.shape[0] == 0:
+        return (torch.empty((0, k // 8 * bits, n), dtype=torch.uint8),
+                torch.empty((0, k // g, n)), torch.empty((0, k // g, n)))
+    parts = [quantize_pack_plain(wi, bits, group_size) for wi in w]
+    return tuple(torch.stack(p) for p in zip(*parts))
+
+
 def quantize_pack(w: torch.Tensor, *, bits: int, group_size: int
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if w.ndim != 2:
-        raise ValueError(f"quantize_pack takes a (K, N) weight, got "
-                         f"{tuple(w.shape)}")
+    """Plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+    ``w`` is one (K, N) weight or a (B, K, N) stack; a stack's outputs
+    carry its leading B."""
+    if w.ndim not in (2, 3):
+        raise ValueError(f"quantize_pack takes a (K, N) weight or a (B, K, "
+                         f"N) stack, got {tuple(w.shape)}")
     if w.device.type == "cpu":
-        return quantize_pack_plain(w, bits, group_size)
-    k, n = w.shape
+        return quantize_pack_plain_batch(w, bits, group_size)
+    lead, (k, n) = w.shape[:-2], w.shape[-2:]
     g = check_group(k, group_size)
     if w.device.type != "cuda":
         raise ValueError(f"quantize_pack: no kernel for device {w.device}")
@@ -109,11 +129,13 @@ def quantize_pack(w: torch.Tensor, *, bits: int, group_size: int
                          f"{w.dtype}")
     _lib.check_cuda("quantize_pack", w)
     dev = w.device
-    packed = torch.empty((k // 8 * bits, n), dtype=torch.uint8, device=dev)
-    scale = torch.empty((k // g, n), dtype=torch.float32, device=dev)
-    zp = torch.empty((k // g, n), dtype=torch.float32, device=dev)
-    if n == 0:
+    packed = torch.empty((*lead, k // 8 * bits, n), dtype=torch.uint8,
+                         device=dev)
+    scale = torch.empty((*lead, k // g, n), dtype=torch.float32, device=dev)
+    zp = torch.empty((*lead, k // g, n), dtype=torch.float32, device=dev)
+    if w.numel() == 0:
         return packed, scale, zp
     _lib.launch("quantize_pack", w.data_ptr(), packed.data_ptr(),
-                scale.data_ptr(), zp.data_ptr(), k, n, bits, g)
+                scale.data_ptr(), zp.data_ptr(), w.shape[0] if lead else 1,
+                k, n, bits, g)
     return packed, scale, zp

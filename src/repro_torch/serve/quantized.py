@@ -17,11 +17,12 @@ their activation factor (``attn_t`` / ``mlp_t`` = {"a_inv", optional
 honoured, as calibrated trees carry them.
 
 A raw float tree is packed on the RTN grid by ``ops.quantize_pack``: the
-``quantize_pack`` kernel for CUDA weights, one (K, N) matrix at a time,
-and its plain version (byte-equal to ``quantize_codes``) on the CPU.
+``quantize_pack`` kernel for CUDA weights, one launch for each stacked
+leaf (a (K, N) linear, its stack over layers, a layer's experts), and its
+plain version (byte-equal to ``quantize_codes``) on the CPU.
 
-An MoE block's experts are packed too (the router stays float), one
-(K, N) matrix at a time.  At serving time each expert leaf is dequantized
+An MoE block's experts are packed too (the router stays float), all of a
+leaf's experts in one launch.  At serving time each expert leaf is dequantized
 from its codes to float32 and the MoE half runs on the float activations
 through the capacity dispatch, at every ``a_bits``: the reference's one
 float-activation site (a quantized grouped-expert kernel is future work
@@ -51,7 +52,6 @@ from repro_torch.core.sites import require_quantizable
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import kv4_check_head_dim, kv4_quantize
-from repro_torch.models.init import stack_layers
 from repro_torch.models.transformer import ServingTrunk
 
 PACKED_WEIGHTS = ("wq", "wk", "wv", "wo")
@@ -60,17 +60,21 @@ PACKED_MLP = ("w_gate", "w_up", "w_down")
 
 def rtn_pack(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
     """A float (K, N) weight, or one stacked over leading axes (layers,
-    experts), on the RTN grid as a QTensor, through ``ops.quantize_pack``
-    one (K, N) matrix at a time.  A symmetric grid, which the packer has no
-    input for, goes through ``quantize_codes``, as the reference packs
-    every grid."""
+    experts), on the RTN grid as a QTensor, through one
+    ``ops.quantize_pack`` call for the whole stack (its leading axes
+    flattened into the packer's batch).  A symmetric grid, which the packer
+    has no input for, goes through ``quantize_codes``, as the reference
+    packs every grid."""
     if qcfg.symmetric:
         return quantize_codes(w, qcfg)
-    if w.ndim > 2:
-        return stack_layers([rtn_pack(wi, qcfg) for wi in w])
-    g = effective_group_size(w.shape[0], qcfg.group_size)
+    lead, (k, n) = w.shape[:-2], w.shape[-2:]
+    g = effective_group_size(k, qcfg.group_size)
+    flat = w.reshape(-1, k, n) if lead else w
     packed, scale, zp = ops.quantize_pack(
-        w.to(torch.float32).contiguous(), bits=qcfg.w_bits, group_size=g)
+        flat.to(torch.float32).contiguous(), bits=qcfg.w_bits, group_size=g)
+    if lead:
+        packed, scale, zp = (t.reshape(*lead, *t.shape[1:])
+                             for t in (packed, scale, zp))
     return QTensor(packed, scale, zp, qcfg.w_bits, g)
 
 

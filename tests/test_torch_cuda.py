@@ -85,35 +85,65 @@ def test_dequant_matmul_kernel(dev, m, k, n, bits, g):
 
 
 # K not a multiple of the kernel's 512-row split, N not a multiple of 4;
-# g8 / g32 / g128 and per-channel (g0)
-SPLIT_SHAPES = [(640, 130, 32), (1152, 45, 128), (1000, 70, 0), (520, 97, 8)]
+# g8 / g32 / g128 and per-channel (g0); the narrow-N linears 2048 -> 256
+# and 2048 -> 512 and the long-K 5120 -> 1280 (K cut across blocks), and
+# 1024 -> 33800, whose M = 512 product has enough 128 x 128 tiles to walk
+# all of K in each block
+SPLIT_SHAPES = [(640, 130, 32), (1152, 45, 128), (1000, 70, 0), (520, 97, 8),
+                (2048, 256, 128), (2048, 512, 32), (5120, 1280, 128),
+                (4096, 4096, 8), (2048, 16384, 0), (1024, 33800, 0)]
+# the row counts held against an M = 512 product: the decode body's 1 / 2-4
+# / 5-8 row variants and tile bodies at 9, 64 and 70 rows
+ROWS_ACROSS_M = (1, 4, 8, 9, 64, 70)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("k,n,g", SPLIT_SHAPES)
 def test_dequant_matmul_rows_equal_across_m(dev, bits, k, n, g):
-    """A row of y is the same bit for bit at every M and in both bodies
-    (decode M <= 8, tile M > 8): the first rows of an M = 70 product equal
-    the same rows run at M = 1, 4 and 8."""
+    """A row of y is the same bit for bit at every M and in every body
+    (decode M <= 8; the tile shapes, folding K in one block or cutting it
+    across blocks): the first rows of an M = 512 product equal the same
+    rows run at M = 1, 4, 8, 9, 64 and 70."""
     rng = np.random.default_rng(bits + k + n + g)
-    x = torch.from_numpy(rng.standard_normal((70, k)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((512, k)).astype(np.float32)).to(dev)
     w = _weight(rng, k, n, bits, g, dev)
     full = dequant_matmul(x, *w, bits=bits, group_size=g)
     assert _err(full, dequant_matmul_plain(x, *w, bits=bits, group_size=g)) < 1e-5
-    for m in (1, 4, 8):
+    for m in ROWS_ACROSS_M:
         assert torch.equal(dequant_matmul(x[:m], *w, bits=bits, group_size=g),
-                           full[:m])
+                           full[:m]), m
 
 
-def test_dequant_matmul_nan_row_stays_in_its_row(dev):
+def test_dequant_matmul_bodies_cover_every_tile(dev):
+    """The row-equality shapes above run every body of the kernel on this
+    card: decode, the tile body folding K in one block and cutting it
+    across blocks, and both tile shapes."""
+    from repro_torch.kernels.dequant_matmul import plan
+    seen = set()
+    for k, n, _ in SPLIT_SHAPES:
+        for m in ROWS_ACROSS_M + (512,):
+            p = plan(m, k, n)
+            seen.add((p["body"], p["bm"], p["bn"]))
+    assert {body for body, _, _ in seen} == {"decode", "tile", "tile_split"}
+    assert {(bm, bn) for body, bm, bn in seen if body != "decode"} == {
+        (128, 128), (64, 64)}, seen
+
+
+@pytest.mark.parametrize("k,n,m", [(640, 40, 12), (2048, 256, 512),
+                                   (2048, 16384, 512), (1024, 33800, 512)])
+def test_dequant_matmul_nan_row_stays_in_its_row(dev, k, n, m):
+    """A NaN in row 3 of x poisons row 3 of y only, in the decode body and
+    in the tile body, K folded in one block or cut across blocks."""
     rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.standard_normal((12, 640)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
     x[3, 600] = float("nan")
-    w = _weight(rng, 640, 40, 4, 32, dev)
-    for rows in (slice(0, 5), slice(0, 12)):          # decode and tile bodies
+    w = _weight(rng, k, n, 4, 32, dev)
+    for rows in (slice(0, 5), slice(0, m)):           # decode and tile bodies
         y = dequant_matmul(x[rows].contiguous(), *w, bits=4, group_size=32)
         assert torch.isnan(y[3]).all()
         assert torch.isfinite(y[[0, 1, 2, 4]]).all()
+        if rows.stop > 5:
+            assert torch.isfinite(y[5:]).all()
 
 
 # Every route of both bodies: decode M 1..8 (its 1/2/4/8-row variants) and
@@ -284,9 +314,12 @@ def test_w8a8_matmul_nan_row_stays_in_its_row(dev):
             assert torch.isfinite(y[[0, 1, 2, 4]]).all()
 
 
+# groups of 64, 128 and 256 keep their weights in registers; the rest read
+# a unit again to pack it; N % 4 != 0 takes one column a lane; N % 16 != 0
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("k,n,g", [(256, 100, 32), (512, 130, 0), (128, 64, 8),
-                                   (1024, 96, 128)])
+                                   (1024, 96, 128), (512, 72, 64),
+                                   (1024, 200, 256), (384, 45, 128)])
 def test_quantize_pack_kernel(dev, bits, k, n, g):
     rng = np.random.default_rng(bits + k + n + g)
     w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(np.float32)).to(dev)
@@ -294,6 +327,28 @@ def test_quantize_pack_kernel(dev, bits, k, n, g):
     want = quantize_pack_plain(w, bits, g)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,k,n,g", [(1, 2048, 768, 128), (3, 2048, 768, 128),
+                                     (128, 2048, 768, 128), (3, 512, 72, 64),
+                                     (3, 256, 100, 32), (3, 384, 45, 0)])
+def test_quantize_pack_batched_kernel(dev, b, k, n, g):
+    """A (B, K, N) stack in one launch equals B calls on its (K, N)
+    matrices and the plain version, byte for byte (qwen3-moe's 128 experts
+    of 2048 x 768 g128; N not a multiple of 16 or of 4)."""
+    from repro_torch.kernels import _lib
+    rng = np.random.default_rng(b + k + n + g)
+    w = torch.from_numpy((rng.standard_normal((b, k, n)) * 0.05
+                          ).astype(np.float32)).to(dev)
+    _lib.reset_launches()
+    got = quantize_pack(w, bits=4, group_size=g)
+    assert _lib.LAUNCHES["quantize_pack"] == 1
+    assert [t.shape[0] for t in got] == [b] * 3
+    for i in range(b):
+        one = quantize_pack(w[i], bits=4, group_size=g)
+        plain = quantize_pack_plain(w[i], 4, g)
+        for a, c, d in zip(got, one, plain):
+            assert torch.equal(a[i], c) and torch.equal(a[i], d)
 
 
 def test_ops_bits3_on_the_card_takes_the_plain_route(dev):
@@ -887,8 +942,8 @@ def test_layernorm_rows_equal_at_every_row_count(dev):
 @pytest.mark.parametrize("arch", ["opt-micro", "llama-micro"])
 def test_quantize_layers_through_the_kernel(dev, arch):
     """RTN packing of a (stacked) float layer tree on the card runs the
-    quantize_pack kernel, one launch per (K, N) matrix, and gives
-    ``quantize_codes``' bytes (packed codes, scales, zero points)."""
+    quantize_pack kernel, one launch per stacked leaf (all its layers), and
+    gives ``quantize_codes``' bytes (packed codes, scales, zero points)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quantizer import QuantConfig, quantize_codes
     from repro_torch.kernels import _lib
@@ -906,7 +961,7 @@ def test_quantize_layers_through_the_kernel(dev, arch):
         names = [(got[k], lp[k]) for k in PACKED_WEIGHTS]
         names += [(got["mlp"][k], lp["mlp"][k]) for k in PACKED_MLP
                   if k in lp["mlp"]]
-        assert _lib.LAUNCHES["quantize_pack"] == cfg.num_layers * len(names)
+        assert _lib.LAUNCHES["quantize_pack"] == len(names)
         for qt, w in names:
             want = quantize_codes(w, qcfg)
             assert (qt.bits, qt.group_size) == (want.bits, want.group_size)

@@ -25,6 +25,7 @@ from repro_torch.core.quantizer import QuantConfig, quantize_codes
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import (quantize_pack,
                                                quantize_pack_plain)
+from repro_torch.serve import quantized
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -107,3 +108,56 @@ def test_ops_bits3_takes_the_plain_route_like_ref():
         jnp.asarray(x), *want, bits=3, group_size=128, a_bits=8))
     err = np.max(np.abs(y_a8.numpy() - want_a8))
     assert err <= 1e-6 * max(1.0, np.max(np.abs(want_a8))), err
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_pack_batched_matches_ref_per_matrix(bits):
+    """A (B, K, N) stack through the wrapper on the CPU (the plain version
+    over the batch) and through ``ops`` equals ``ref.quantize_pack_ref`` on
+    each matrix, byte for byte, with the batch leading every output."""
+    rng = np.random.default_rng(200 + bits)
+    w = (rng.standard_normal((3, 256, 48)) * 0.05).astype(np.float32)
+    got = quantize_pack(T(w), bits=bits, group_size=32)
+    assert [tuple(t.shape) for t in got] == [
+        (3, 256 // 8 * bits, 48), (3, 8, 48), (3, 8, 48)]
+    for i in range(3):
+        _equal(tuple(t[i] for t in got),
+               ref.quantize_pack_ref(jnp.asarray(w[i]), bits=bits,
+                                     group_size=32))
+    _equal(ops.quantize_pack(T(w), bits=bits, group_size=32), got)
+
+
+@pytest.mark.parametrize("bits,g", [(4, 32), (2, 0), (3, 64)])
+def test_rtn_pack_stacked_leaf_equals_per_matrix(monkeypatch, bits, g):
+    """``rtn_pack`` of a stacked (L, E, K, N) leaf calls the packer once and
+    gives the QTensor of each matrix packed alone (``quantize_codes``, the
+    bytes it gave when it packed one matrix at a time)."""
+    from repro_torch.core.quantizer import effective_group_size
+    calls = []
+    packer = ops.quantize_pack
+
+    def counted(w, **kw):
+        calls.append(tuple(w.shape))
+        return packer(w, **kw)
+
+    monkeypatch.setattr(quantized.ops, "quantize_pack", counted)
+    rng = np.random.default_rng(300 + bits + g)
+    w = T((rng.standard_normal((2, 3, 128, 24)) * 0.05).astype(np.float32))
+    qcfg = QuantConfig(w_bits=bits, group_size=g)
+    qt = quantized.rtn_pack(w, qcfg)
+    assert calls == [(6, 128, 24)]
+    assert (qt.bits, qt.group_size) == (bits,
+                                        effective_group_size(128, g))
+    for i in range(2):
+        for e in range(3):
+            want = quantize_codes(w[i, e], qcfg)
+            _equal((qt.packed[i, e], qt.scale[i, e], qt.zp[i, e]),
+                   (want.packed, want.scale, want.zp))
+
+
+def test_quantize_pack_rejects_a_stack_of_stacks():
+    """The packer takes a (K, N) weight or a (B, K, N) stack; rtn_pack
+    flattens any other leading axes into B."""
+    with pytest.raises(ValueError):
+        quantize_pack(T(np.zeros((2, 2, 64, 8), np.float32)), bits=4,
+                      group_size=32)
