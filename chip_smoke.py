@@ -69,6 +69,14 @@ failure raises (exit code != 0).
    with its tile and the number of blocks K is cut across) and gives its
    time as a multiple of torch.matmul's; at M = 512 the rows at M = 4
    (decode) and M = 64 must equal the same rows of the M = 512 product.
+   Slice identity (a rank of a (1, m) mesh runs each kernel on its slice):
+   w4a8_matmul (w4 g128 a4) and dequant_matmul (w4 g128) at M = 4 and 512
+   on contiguous column slices N / 2 and N / 4 of llama-7b's 4096 -> 4096
+   and 4096 -> 11008 weights (5504 and 2752 columns are ragged) must equal
+   the same columns of the full product, and the four attention kernels
+   (kv8 and kv4, both layouts) on head slices of q and of the cache
+   (llama-7b's 32 KV heads, qwen2.5-14b's 8 with G 5) the same heads of
+   the full call, bit for bit (no timing).
 3. serve: llama-7b at full width, W4A4 g128 with the kv8 cache, greedy,
    through ``repro_torch.launch.serve`` (4 requests, prompt 128, 32 new
    tokens, batch 4, max_len 512), with the launch counters zeroed just
@@ -217,6 +225,9 @@ failure raises (exit code != 0).
    AffineQuant W4A4 g128 kv8 packed tree served through the Engine
    (``w4a8_matmul``, ``flash_prefill``, ``flash_decode``; the per-block
    check) beside the trained float tree (greedy agreement logged).
+   (a)'s kill and relaunch and (c)'s opt-mini run in processes of their
+   own beside (c)'s llama-mini (the card is shared then: (c)'s timings
+   are not those of one process alone).
 14. the MoE family (the experts run on float activations: dequantized
    from their codes to float32 every step and multiplied by torch.bmm, the
    reference's one float-activation site; routing flips between the
@@ -289,11 +300,28 @@ failure raises (exit code != 0).
    check), one hubert calibration step on the card held to the CPU's
    (loss within 1e-5, gradients within 1e-4) with its forwards
    bidirectional, and RTN / AWQ / GPTQ at W4A16 g128 on one block of each
-   with phase 10's gates and their seconds per block.  Each part logs its
-   wall time.
-17. summary.  Every kernel's ``launches`` is the count of the runs above
+   with phase 10's gates and their seconds per block; (c) runs in a
+   process of its own beside (a) and (b) (the card is shared then).  Each
+   part logs its wall time.
+17. mesh-native serving on phase 3's tree (run after phase 9): (a)
+   ``Engine(mesh=make_serving_mesh(1, 1))`` over NCCL with a world of one,
+   phase 5a's requests (pages of 64, whole prompts): streams equal phase
+   5a's token for token, ``memory_report`` the unsharded bytes on one
+   device; (b) a (1, 2) mesh of two ranks on the one card over gloo
+   (collectives staged through the host), started by ``launch/serve
+   --mesh-data 1 --mesh-model 2 --share-cards`` on phase 3's tree cut to
+   MESH_LAYERS (full width; saved once with ``checkpoints.save``, each
+   rank loading it with ``--load-packed`` and cutting its shard) with phase
+   5b's pool (chunks of 64, 10 pages): each rank's streams, statuses and
+   preemptions must equal the unsharded engine's on the same tree and
+   depth (which must preempt), each rank must hold less weight and KV
+   bytes and launch the kernels (its launches by name and its decode step
+   in the log line, beside the card's name and power limit); a rank that
+   fails fails the script.
+18. summary.  Every kernel's ``launches`` is the count of the runs above
    that drive the main path (the startup packing of phases 3, 4, 12, 14
-   and 16, phases 3-6, 9, 11, 12, the serving runs of phase 8, phase 10's
+   and 16, phases 3-6, 9, 11, 12, both parts of phase 17 (each rank's
+   launches counted in its process), the serving runs of phase 8, phase 10's
    serving and RTN packing, phase 13's two serving runs, phase 14's
    serving runs, phase 15's Engine runs and paligemma decode, and phase
    16's serving runs, causality probe, calibration serving and RTN
@@ -304,7 +332,7 @@ failure raises (exit code != 0).
    (``launches_by_body`` in the kernels JSON line).
    Every phase logs its wall time.
 
-Phases 3, 5, 6, 7 and 9 share one packed llama-7b tree.
+Phases 3, 5, 6, 7, 9 and 17 share one packed llama-7b tree.
 The last lines are one JSON object of the kernels (with phase 7's
 ``profiler_retries``), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -532,6 +560,7 @@ def main() -> None:
     check_int8_kernels(torch, timer, results)
     check_quantize_pack(torch, timer, results)
     check_griffin_attention(torch, timer, results)
+    check_slices(torch)
     del timer
     torch.cuda.empty_cache()
 
@@ -555,6 +584,8 @@ def main() -> None:
     # ---- 9. the Engine contract, on the same tree -------------------------
     phases.append(engine_contract(torch, params, list(prompts.numpy()),
                                   streams))
+    # ---- 17. mesh-native serving, on the same tree ------------------------
+    phases.append(mesh_phase(torch, params, streams))
     repacked, retries = repack(torch, params, prompts)
     # phase 7's quantize_pack calls are its repack comparison, not a run of
     # the main path; only its int8 pair counts
@@ -588,7 +619,7 @@ def main() -> None:
     # ---- 16. quantized vlm and audio ---------------------------------------
     phases.append(vlm_audio_phase(torch))
 
-    # ---- 17. summary -------------------------------------------------------
+    # ---- 18. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -928,6 +959,109 @@ def check_kernels(torch, timer, results) -> None:
     check_chunk_split(torch, "flash_prefill", gen, lambda kv, o, n, qq:
                       fp.flash_prefill(qq, kv[0], kv[1], o, n, kv[2], kv[3]),
                       lambda kv_bits: cache(32, kv_bits))
+
+
+# the column slices a (1, m) mesh gives each rank of llama-7b's
+# column-parallel linears: q/k/v (4096 -> 4096) and gate / up (4096 ->
+# 11008: 5504 and 2752 columns are ragged N); wo / w_down stay whole
+SLICE_LINEARS = ((4096, 4096), (4096, 11008))
+SLICE_PARTS = (2, 4)
+# (D, G, Hkv) of the attention head slices: llama-7b (MHA) and
+# qwen2.5-14b (GQA: 8 KV heads become 4 and 2, where flash_decode tiles
+# its G rows differently)
+SLICE_ATTN = ((128, 1, 32), (128, 5, 8))
+
+
+def check_slices(torch) -> None:
+    """Phase 2, slice identity: each rank of a (1, m) mesh runs a kernel on
+    its slice, so a slice's result must be the same bits as the same part
+    of the whole call.  w4a8_matmul (w4 g128 a4) and dequant_matmul (w4
+    g128) at M 4 and 512 on contiguous column slices of the packed weight
+    (codes, scales and zero points cut alike) against the same columns of
+    the full product; the four attention kernels (kv8 and kv4, both
+    layouts) on contiguous head slices of q and of the cache against the
+    same heads of the full call.  Equality only, m = 2 and 4."""
+    from repro_torch.core.packing import pack
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    dev = "cuda"
+
+    def equal(name, case, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[slice] {name} {case}: a slice differs "
+                               f"from the same part of the full call")
+
+    g = 128
+    for k, n in SLICE_LINEARS:
+        codes = torch.randint(0, 16, (k, n), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        qt = QTensor(pack(codes, 4),
+                     torch.rand((k // g, n), generator=gen, device=dev)
+                     * 0.01 + 1e-3,
+                     torch.randint(0, 16, (k // g, n), generator=gen,
+                                   device=dev).to(torch.float32), 4, g)
+        for m in (4, 512):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            calls = {"w4a8_matmul": lambda w: ops.quant_matmul(x, w,
+                                                               a_bits=4),
+                     "dequant_matmul": lambda w: ops.dequant_matmul(x, w)}
+            for name, call in calls.items():
+                whole = call(qt)
+                for parts in SLICE_PARTS:
+                    step = n // parts
+                    for r in range(parts):
+                        cols = slice(r * step, (r + 1) * step)
+                        part = QTensor(*(t[:, cols].contiguous() for t in (
+                            qt.packed, qt.scale, qt.zp)), 4, g)
+                        equal(name, f"M={m} K={k} N={n} / {parts}",
+                              call(part), whole[:, cols])
+            bodies = {p: dq.plan(m, k, n // p)["body"] for p in
+                      (1,) + SLICE_PARTS}
+            log(f"[slice] w4a8_matmul and dequant_matmul M={m} {k}->{n}: "
+                f"column slices of N/2 and N/4 ({n // 2}, {n // 4} columns) "
+                f"equal the same columns of the full product (bit-equal; "
+                f"dequant_matmul bodies {bodies})")
+    lens = [144, 1, 300, 512]
+    b, s, ps = len(lens), 512, 64
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    off = torch.tensor([0, 64, 300, 17], dtype=torch.int32, device=dev)
+    cl = torch.tensor([128, 100, 0, 1], dtype=torch.int32, device=dev)
+    for d, grp, hkv in SLICE_ATTN:
+        hq = hkv * grp
+        for kv_bits in (8, 4):
+            pools, pt, lin = paged_case(torch, gen, [s] * b, hkv, d, ps,
+                                        kv_bits, s // ps)
+            qd = torch.randn((b, 1, hq, d), generator=gen, device=dev)
+            qp = torch.randn((b, 128, hq, d), generator=gen, device=dev)
+            calls = {
+                "flash_decode": lambda q, kv: ops.flash_decode(q, kv, cur),
+                "flash_decode_paged": lambda q, kv: ops.flash_decode(
+                    q, kv, cur, page_table=pt),
+                "flash_prefill": lambda q, kv: ops.flash_prefill(
+                    q, kv, off, cl),
+                "flash_prefill_paged": lambda q, kv: ops.flash_prefill(
+                    q, kv, off, cl, page_table=pt)}
+            for name, call in calls.items():
+                kv = pools if name.endswith("paged") else lin
+                q = qd if "decode" in name else qp
+                whole = call(q, kv)
+                for parts in SLICE_PARTS:
+                    hs, qs = hkv // parts, hq // parts
+                    for r in range(parts):
+                        heads = slice(r * hs, (r + 1) * hs)
+                        part_kv = tuple(t[:, :, heads].contiguous()
+                                        for t in kv)
+                        got = call(q[:, :, r * qs:(r + 1) * qs].contiguous(),
+                                   part_kv)
+                        equal(name, f"kv{kv_bits} D={d} G={grp} Hkv={hkv} "
+                              f"/ {parts}", got,
+                              whole[:, :, r * qs:(r + 1) * qs])
+            log(f"[slice] the four attention kernels kv{kv_bits} D={d} "
+                f"G={grp} Hkv={hkv}: head slices of Hkv/2 and Hkv/4 equal "
+                f"the same heads of the full call (bit-equal, both layouts)")
 
 
 # recurrentgemma-2b's local attention: MQA with 10 query heads of 256
@@ -2206,6 +2340,141 @@ def sampling_phase(torch, out, counts, card, prompts, greedy) -> None:
 # 7. the three kernels no serving path runs, over the served tree
 # ---------------------------------------------------------------------------
 
+MESH_LAYERS = 8          # 17b's depth, cut from 32 (full width): two ranks
+#                          share the card and stage every collective
+#                          through the host
+MESH_MODEL = 2           # 17b's "model" axis: two ranks on the one card
+MESH_DEVICE = "cuda"     # "cpu" rehearses the phase (gloo, micro sizes)
+
+
+def mesh_phase(torch, params, streams) -> dict:
+    """Phase 17 on phase 3's tree: (a) ``Engine(mesh=make_serving_mesh(1,
+    1))`` over NCCL with a world of one, phase 5a's requests (pages of 64,
+    whole prompts), streams equal phase 5a's (= phase 3's), memory_report
+    the unsharded bytes on one device; (b) a (1, 2) mesh of two ranks on
+    the one card over gloo, started by ``launch/serve --mesh-model 2
+    --share-cards`` on the tree cut to MESH_LAYERS (saved once by
+    ``checkpoints.save``, each rank loading it with ``--load-packed`` and
+    cutting its shard), phase 5b's pool (chunks of 64, 10 pages: must
+    preempt): each rank's streams, statuses and preemptions equal the
+    unsharded engine's on the same tree and depth, and each rank holds
+    less weight and KV bytes.  Returns the launches of both parts' serving
+    runs (each rank's counted in its process)."""
+    t_phase = time.perf_counter()
+    card = card_name(torch)
+    counts = zero_counts()
+    mesh_single(torch, params, streams, counts, card)
+    mesh_two_ranks(torch, params, counts, card)
+    log(f"[mesh] phase 17 wall time {time.perf_counter() - t_phase:.1f} s "
+        f"({card}); launches {counts}")
+    return counts
+
+
+def mesh_single(torch, params, streams, counts, card) -> None:
+    """(a) the 1 x 1 mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve.engine import Engine
+    t0 = time.perf_counter()
+    mesh = make_serving_mesh(1, 1, device=MESH_DEVICE)
+    backend = dist.get_backend()
+    args = serve.build_parser().parse_args(
+        _with(SERVE_ARGS, layers=LAYERS, paged=True, page_size=64))
+    try:
+        if backend != ("nccl" if MESH_DEVICE == "cuda" else "gloo"):
+            raise RuntimeError(f"mesh-a: a world of one on {MESH_DEVICE} "
+                               f"chose {backend}")
+        with counted(counts):
+            out = serve.serve(args, params, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    got = [list(r.out_tokens) for r in out["requests"]]
+    if got != streams:
+        raise RuntimeError("mesh-a: the 1 x 1 mesh's streams differ from "
+                           "phase 5a's")
+    rep = out["engine"].memory_report()
+    plain = Engine(out["model"], params, serve.serve_config(args)
+                   ).memory_report()
+    if rep != plain or rep["device_count"] != 1:
+        raise RuntimeError(f"mesh-a: memory_report {rep} is not the "
+                           f"unsharded {plain}")
+    steps = out["step_seconds"]
+    log(f"[mesh-a] Engine(mesh=make_serving_mesh(1, 1)), backend {backend}, "
+        f"llama-7b x{LAYERS} w4a4 g128 kv8 paged: streams equal phase 5a's "
+        f"token for token; memory_report {rep} (unsharded); decode step "
+        f"median {statistics.median(steps[1:]) * 1e3:.2f} ms; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+
+
+def _depth(tree, n: int):
+    """The first ``n`` layers of a stacked layer tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _depth(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def mesh_two_ranks(torch, params, counts, card) -> None:
+    """(b) the (1, 2) mesh: two ranks on one card."""
+    import tempfile
+    from repro_torch.launch import serve
+    from repro_torch.train import checkpoints
+    t0 = time.perf_counter()
+    tree = dict(params, layers=_depth(params["layers"], MESH_LAYERS))
+    argv = _with(SERVE_ARGS, layers=MESH_LAYERS, paged=True, page_size=64,
+                 prefill_chunk=64, num_pages=POOL_PAGES)
+    with counted(counts):
+        base = serve.serve(serve.build_parser().parse_args(argv), tree)
+    want = {"streams": [list(r.out_tokens) for r in base["requests"]],
+            "statuses": [r.status.name for r in base["requests"]],
+            "preemptions": base["preemptions"]}
+    if want["preemptions"] < 1:
+        raise RuntimeError("mesh-b: the unsharded 10-page pool never "
+                           "preempted")
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoints.save(tmp, 0, tree)
+        t1 = time.perf_counter()
+        res = serve.serve_on_mesh(serve.build_parser().parse_args(
+            argv + ["--load-packed", tmp, "--mesh-data", "1", "--mesh-model",
+                    str(MESH_MODEL), "--share-cards"]))
+        t_ranks = time.perf_counter() - t1
+    steps = base["step_seconds"]
+    log(f"[mesh-b] unsharded llama-7b x{MESH_LAYERS} (depth cut from 32, full "
+        f"width) w4a4 g128 kv8, chunks of 64 into {POOL_PAGES} pages: "
+        f"preemptions {want['preemptions']}, statuses {want['statuses']}; "
+        f"decode step median {statistics.median(steps[1:]) * 1e3:.2f} ms; "
+        f"weight bytes {base['weight_bytes']}, KV bytes {base['kv_bytes']}")
+    for rank in res["ranks"]:
+        got = {k: rank[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"mesh-b: rank {rank['rank']} served {got}, "
+                               f"the unsharded engine {want}")
+        mem = rank["memory"]
+        if not (mem["weight_bytes"] < base["weight_bytes"]
+                and mem["kv_bytes"] < base["kv_bytes"]
+                and mem["device_count"] == MESH_MODEL):
+            raise RuntimeError(f"mesh-b: rank {rank['rank']} holds {mem}, "
+                               f"not less than the unsharded engine")
+        launched = {k: v for k, v in rank["launches"].items() if v}
+        require_launched(rank["launches"], ("w4a8_matmul",
+                                            "flash_prefill_paged",
+                                            "flash_decode_paged"),
+                         f"mesh-b rank {rank['rank']}")
+        _add(counts, {k: v for k, v in rank["launches"].items()
+                      if k in counts})
+        rs = rank["step_seconds"]
+        log(f"[mesh-b] rank {rank['rank']} of (1, {MESH_MODEL}) "
+            f"({rank['backend']}, coordinate {rank['coordinate']}): streams, "
+            f"statuses and preemptions equal the unsharded engine's; weight "
+            f"bytes {mem['weight_bytes']}, KV bytes {mem['kv_bytes']}; decode "
+            f"step median {statistics.median(rs[1:]) * 1e3:.2f} ms over "
+            f"{len(rs) - 1} steps; launches {launched}; {card}")
+    log(f"[mesh-b] two ranks on one card: {t_ranks:.1f} s from the start of "
+        f"the ranks to their last summary (process start, loading and "
+        f"cutting the tree, serving); part (b) {time.perf_counter() - t0:.1f} "
+        f"s ({card})")
+
+
 def device_kernels(torch, fn, want, tries: int = 3) -> tuple[list, int]:
     """The names of the device kernels one call of ``fn`` runs
     (torch.profiler), and how many traces were taken again.  Every traced
@@ -2446,19 +2715,17 @@ def calibrate_run(torch, tag, calib_argv, serve_argv, flags, counts,
     with tempfile.TemporaryDirectory() as ckpt:
         t0 = time.perf_counter()
         checkpoints.save(ckpt, 0, packed)
+        t_saved = time.perf_counter()
         back = checkpoints.load_tree(ckpt, cfg, qcfg, device=dev)
-        want, got = checkpoints.flatten(packed), checkpoints.flatten(back)
-        same = sorted(want) == sorted(got) and all(
-            want[k][1] == got[k][1] and want[k][0].shape == got[k][0].shape
-            and want[k][0].tobytes() == got[k][0].tobytes() for k in want)
-        log(f"[{tag}] packed tree saved and read back in "
-            f"{time.perf_counter() - t0:.1f} s: {len(want)} leaves, "
-            f"{sum(a.nbytes for a, _ in want.values())} bytes, "
+        t_read = time.perf_counter()
+        n, nbytes, same = _byte_equal(torch, packed, back)
+        log(f"[{tag}] packed tree saved in {t_saved - t0:.1f} s, read back "
+            f"in {t_read - t_saved:.1f} s: {n} leaves, {nbytes} bytes, "
             f"byte-equal {same}")
         if not same:
             raise RuntimeError(f"{tag}: the checkpoint round trip changed "
                                f"the packed tree")
-        del back, want, got
+        del back
         mem, c_mem = _counted_serve(sargv, packed)
         disk, c_disk = _counted_serve(sargv + ["--load-packed", ckpt], None)
     streams = [r.out_tokens for r in mem["requests"]]
@@ -2500,6 +2767,37 @@ def calibrate_run(torch, tag, calib_argv, serve_argv, flags, counts,
     del fake
     return {"params": params, "packed": packed, "report": rep, "mem": mem,
             "streams": streams}
+
+
+def _byte_equal(torch, a, b) -> tuple:
+    """(leaves, bytes, equal) of two trees compared on their device: the
+    same leaves (a QTensor's codes, scale and zero points each), dtypes,
+    shapes and bytes."""
+    from repro_torch.core.qtensor import QTensor
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        elif isinstance(tree, QTensor):
+            for f in ("packed", "scale", "zp"):
+                yield path + (f,), getattr(tree, f)
+        else:
+            yield path, tree
+
+    la, lb = dict(leaves(a)), dict(leaves(b))
+
+    def same(x, y):
+        if not isinstance(x, torch.Tensor):
+            return x == y
+        return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                and x.shape == y.shape and torch.equal(
+                    x.reshape(-1).view(torch.uint8),
+                    y.to(x.device).reshape(-1).view(torch.uint8)))
+    equal = la.keys() == lb.keys() and all(same(la[k], lb[k]) for k in la)
+    nbytes = sum(t.numel() * t.element_size() for t in la.values()
+                 if isinstance(t, torch.Tensor))
+    return len(la), nbytes, equal
 
 
 def a16_gate(torch, tag, out, prompts, gen) -> None:
@@ -3109,31 +3407,43 @@ def train_phase(torch) -> dict:
     counts = zero_counts()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        train_opt(torch, Path(tmp), card)
-        log(f"[train] (a) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_llama_width(torch, card)
-    log(f"[train] (b) {time.perf_counter() - t0:.1f} s")
-    for arch in MINI_ARCHS:
+        out = train_opt(torch, Path(tmp), card)
+        log(f"[train] (a) in process {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        _add(counts, trained_mini(torch, arch, card))
-        log(f"[train] (c) {arch} {time.perf_counter() - t0:.1f} s")
+        train_llama_width(torch, card)
+        log(f"[train] (b) {time.perf_counter() - t0:.1f} s")
+        # (a)'s kill and relaunch and (c)'s second miniature run in
+        # processes of their own beside (c)'s first, sharing the card (so
+        # (c)'s timings are not those of one process alone)
+        t_chain = time.perf_counter()
+        chain = KillAndResume(Path(tmp))
+        first, *others = MINI_ARCHS
+        sides = [SideRun("trained_mini", arch, Path(tmp)) for arch in others]
+        t0 = time.perf_counter()
+        _add(counts, trained_mini(torch, first, card))
+        log(f"[train] (c) {first} {time.perf_counter() - t0:.1f} s (beside "
+            f"(a)'s kill and relaunch and {others})")
+        for side in sides:
+            _add(counts, side.finish())
+            log(f"[train] (c) {side.arg} in its own process "
+                f"{side.seconds:.1f} s")
+        chain.finish(torch, out)
+        log(f"[train] (a) kill, relaunch and checks "
+            f"{time.perf_counter() - t_chain:.1f} s from the kill run's "
+            f"start, (c) included")
+        del out
     torch.cuda.empty_cache()
     log(f"[train] phase 13 wall time {time.perf_counter() - t_phase:.1f} s; "
         f"launches {counts}; {card}")
     return counts
 
 
-def train_opt(torch, tmp: Path, card: str) -> None:
-    """(a) opt-125m through ``python -m repro_torch.launch.train``: in
-    process, then the same command as a subprocess killed (SIGKILL) once
-    step 100 is saved and launched again unchanged."""
-    import os
-    import numpy as np
-    from repro_torch.data import MarkovCorpus
-    from repro_torch.launch import calibrate, train
-    from repro_torch.train import checkpoints
-    run, resumed = tmp / "run", tmp / "resumed"
+def train_opt(torch, tmp: Path, card: str) -> dict:
+    """(a) opt-125m through ``python -m repro_torch.launch.train`` in
+    process (its checkpoints in ``tmp / "run"``); returns the run
+    (:class:`KillAndResume` does the rest)."""
+    from repro_torch.launch import train
+    run = tmp / "run"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3145,7 +3455,7 @@ def train_opt(torch, tmp: Path, card: str) -> None:
         f"loss {out['final_loss']:.4f}; corpus entropy floor "
         f"{out['corpus'].entropy_floor():.4f} nats")
     arg = lambda name: int(TRAIN_ARGS[TRAIN_ARGS.index(name) + 1])
-    steps, seq, mid = arg("--steps"), arg("--seq"), arg("--ckpt-every")
+    steps, seq = arg("--steps"), arg("--seq")
     tokens = arg("--global-batch") * seq
     _train_log("train-a", hist, cfg, tokens, torch.cuda.max_memory_allocated(),
                card)
@@ -3159,66 +3469,158 @@ def train_opt(torch, tmp: Path, card: str) -> None:
     if not last20 <= first - 1.0:
         raise RuntimeError(f"train-a: the last 20 losses average {last20:.4f}"
                            f", not 1 nat below the first {first:.4f}")
-    # the kill and the resume
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
-           "--ckpt-dir", str(resumed)]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    with open(tmp / "killed.log", "w") as f:
-        proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=f, cwd=ROOT)
-        try:
-            while not (resumed / f"step_{mid:08d}").is_dir():
-                if proc.poll() is not None or time.perf_counter() - t0 > 300:
-                    raise RuntimeError(f"train-a: the run to kill ended or "
-                                       f"stalled before step {mid} was saved")
-                time.sleep(0.01)
-        finally:
-            proc.kill()
-            proc.wait()
-    at_kill = checkpoints.latest_step(resumed)
-    log(f"[train-a] SIGKILL once step_{mid:08d} existed "
-        f"({time.perf_counter() - t0:.1f} s after the start); latest "
-        f"checkpoint {at_kill}")
-    if at_kill != mid:
-        raise RuntimeError(f"train-a: the kill came at checkpoint {at_kill}, "
-                           f"not {mid}")
-    t0 = time.perf_counter()
-    again = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
-                           text=True, timeout=600)
-    if again.returncode != 0:
-        raise RuntimeError(f"train-a: the relaunch failed:\n{again.stderr}")
-    said = again.stdout.strip().splitlines()[-1]
-    log(f"[train-a] relaunched unchanged in {time.perf_counter() - t0:.1f} "
-        f"s: {said}")
-    if f"restored checkpoint at step {mid}" not in again.stderr:
-        raise RuntimeError(f"train-a: the relaunch did not restore step {mid}")
-    if checkpoints.latest_step(resumed) != steps:
-        raise RuntimeError(f"train-a: the relaunch did not finish at {steps}")
-    leaves = []
-    for d in (resumed, run):
-        with np.load(d / f"step_{steps:08d}" / "arrays.npz") as z:
-            leaves.append({k: torch.from_numpy(z[k]) for k in z.files})
-    log(f"[train-a] resumed vs uninterrupted step-{steps} checkpoint, gated on "
-        f"{TRAIN_TOL:.0e} of each leaf's largest magnitude (deterministic "
-        f"algorithms off)")
-    _leaves_close(torch, "train-a", *leaves, TRAIN_TOL)
-    # launch/calibrate --ckpt reads the same floats
-    cal = calibrate.calibrate(calibrate.build_parser().parse_args([
-        "--arch", cfg.name, "--ckpt", str(run), "--method", "rtn",
-        "--wbits", "4", "--group", "128", "--calib-samples", "16",
-        "--calib-seq", str(seq), "--seed", "0", "--device", TRAIN_DEVICE]))
-    test = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=0).sample(
-        16, seq, seed=999))
-    mem = calibrate.eval_ppl(out["model"], out["state"].params, test)
-    ckpt = cal["report"]["fp_ppl"]
-    log(f"[train-a] held-out 16 x {seq} fp perplexity: in memory {mem:.4f}, "
-        f"through launch/calibrate --ckpt {ckpt:.4f} (seed-0 random weights "
-        f"give ~59256: PERF.md §5); rtn w4a16g128 {cal['report']['quant_ppl']:.4f}")
-    if not abs(mem - ckpt) <= 1e-6 * mem:
-        raise RuntimeError("train-a: the checkpoint calibrate reads gives "
-                           "another perplexity than the trained params")
-    del out, cal
     torch.cuda.empty_cache()
+    return out
+
+
+class SideRun:
+    """``fn(torch, arg, card)`` (``fn(torch, card)`` when ``arg`` is None)
+    of this script run in a process of its own (:func:`side_main`), beside
+    the main process; :meth:`finish` waits,
+    logs its output and returns the launch counts it returned.  A failure
+    there fails the script."""
+
+    def __init__(self, fn: str, arg, tmp: Path):
+        import os
+        self.fn, self.arg = fn, arg
+        self.path = tmp / f"side-{fn}-{arg}.json"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.side_main("
+             f"{fn!r}, {arg!r}, {str(self.path)!r})"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(self) -> dict:
+        out, _ = self.proc.communicate(timeout=900)
+        self.seconds = time.perf_counter() - self.t0
+        for line in out.splitlines():
+            log(line)
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"{self.fn}({self.arg}) failed in its own "
+                               f"process (exit {self.proc.returncode})")
+        return json.loads(self.path.read_text())
+
+
+def side_main(fn: str, arg: str, path: str) -> None:
+    """The body of a :class:`SideRun` process."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _lib
+    _lib.lib()
+    args = () if arg is None else (arg,)
+    counts = globals()[fn](torch, *args, card_name(torch))
+    Path(path).write_text(json.dumps(counts))
+
+
+class KillAndResume:
+    """(a)'s second half: the training command started as a subprocess,
+    killed (SIGKILL) once step ``--ckpt-every`` is saved and launched again
+    unchanged, in a thread of its own so that the main process goes on;
+    :meth:`finish` joins it and gates it against the uninterrupted run."""
+
+    def __init__(self, tmp: Path):
+        import os
+        import threading
+        self.tmp, self.resumed = tmp, tmp / "resumed"
+        self.cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                    *TRAIN_ARGS, "--ckpt-dir", str(self.resumed)]
+        self.env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.lines, self.error, self.again = [], None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        from repro_torch.train import checkpoints
+        mid = int(TRAIN_ARGS[TRAIN_ARGS.index("--ckpt-every") + 1])
+        try:
+            t0 = time.perf_counter()
+            with open(self.tmp / "killed.log", "w") as f:
+                proc = subprocess.Popen(self.cmd, env=self.env, stdout=f,
+                                        stderr=f, cwd=ROOT)
+                try:
+                    while not (self.resumed / f"step_{mid:08d}").is_dir():
+                        if (proc.poll() is not None
+                                or time.perf_counter() - t0 > 300):
+                            raise RuntimeError(
+                                f"train-a: the run to kill ended or stalled "
+                                f"before step {mid} was saved")
+                        time.sleep(0.01)
+                finally:
+                    proc.kill()
+                    proc.wait()
+            at_kill = checkpoints.latest_step(self.resumed)
+            self.lines.append(
+                f"[train-a] SIGKILL once step_{mid:08d} existed "
+                f"({time.perf_counter() - t0:.1f} s after the start); latest "
+                f"checkpoint {at_kill}")
+            if at_kill != mid:
+                raise RuntimeError(f"train-a: the kill came at checkpoint "
+                                   f"{at_kill}, not {mid}")
+            t0 = time.perf_counter()
+            self.again = subprocess.run(self.cmd, env=self.env, cwd=ROOT,
+                                        capture_output=True, text=True,
+                                        timeout=600)
+            self.relaunch_s = time.perf_counter() - t0
+        except Exception as e:           # re-raised by finish()
+            self.error = e
+
+    def finish(self, torch, out) -> None:
+        import numpy as np
+        from repro_torch.data import MarkovCorpus
+        from repro_torch.launch import calibrate
+        from repro_torch.train import checkpoints
+        self.thread.join()
+        for line in self.lines:
+            log(line)
+        if self.error is not None:
+            raise self.error
+        arg = lambda name: int(TRAIN_ARGS[TRAIN_ARGS.index(name) + 1])
+        steps, seq, mid = arg("--steps"), arg("--seq"), arg("--ckpt-every")
+        again = self.again
+        if again.returncode != 0:
+            raise RuntimeError(f"train-a: the relaunch failed:\n"
+                               f"{again.stderr}")
+        said = again.stdout.strip().splitlines()[-1]
+        log(f"[train-a] relaunched unchanged in {self.relaunch_s:.1f} s: "
+            f"{said}")
+        if f"restored checkpoint at step {mid}" not in again.stderr:
+            raise RuntimeError(f"train-a: the relaunch did not restore step "
+                               f"{mid}")
+        if checkpoints.latest_step(self.resumed) != steps:
+            raise RuntimeError(f"train-a: the relaunch did not finish at "
+                               f"{steps}")
+        run = self.tmp / "run"
+        leaves = []
+        for d in (self.resumed, run):
+            with np.load(d / f"step_{steps:08d}" / "arrays.npz") as z:
+                leaves.append({k: torch.from_numpy(z[k]) for k in z.files})
+        log(f"[train-a] resumed vs uninterrupted step-{steps} checkpoint, "
+            f"gated on {TRAIN_TOL:.0e} of each leaf's largest magnitude "
+            f"(deterministic algorithms off)")
+        _leaves_close(torch, "train-a", *leaves, TRAIN_TOL)
+        # launch/calibrate --ckpt reads the same floats
+        cfg = out["cfg"]
+        cal = calibrate.calibrate(calibrate.build_parser().parse_args([
+            "--arch", cfg.name, "--ckpt", str(run), "--method", "rtn",
+            "--wbits", "4", "--group", "128", "--calib-samples", "16",
+            "--calib-seq", str(seq), "--seed", "0", "--device",
+            TRAIN_DEVICE]))
+        test = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=0).sample(
+            16, seq, seed=999))
+        mem = calibrate.eval_ppl(out["model"], out["state"].params, test)
+        ckpt = cal["report"]["fp_ppl"]
+        log(f"[train-a] held-out 16 x {seq} fp perplexity: in memory "
+            f"{mem:.4f}, through launch/calibrate --ckpt {ckpt:.4f} (seed-0 "
+            f"random weights give ~59256: PERF.md §5); rtn w4a16g128 "
+            f"{cal['report']['quant_ppl']:.4f}")
+        if not abs(mem - ckpt) <= 1e-6 * mem:
+            raise RuntimeError("train-a: the checkpoint calibrate reads gives "
+                               "another perplexity than the trained params")
+        del cal
+        torch.cuda.empty_cache()
 
 
 def train_llama_width(torch, card: str) -> None:
@@ -4210,14 +4612,21 @@ QVA_DEVICE = "cuda"       # "cpu" rehearses the phase with reduced configs
 
 def vlm_audio_phase(torch) -> dict:
     """Phase 16 (see the module docstring); returns its launch counts."""
+    import tempfile
     t_phase = time.perf_counter()
     card = card_name(torch)
     counts = zero_counts()
-    for part, fn in (("a", qvlm_serve), ("b", qaudio_serve),
-                     ("c", qva_calibrate)):
-        t0 = time.perf_counter()
-        _add(counts, fn(torch, card))
-        log(f"[qva] ({part}) {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) runs in a process of its own beside (a) and (b), sharing the
+        # card with them
+        side = SideRun("qva_calibrate", None, Path(tmp))
+        for part, fn in (("a", qvlm_serve), ("b", qaudio_serve)):
+            t0 = time.perf_counter()
+            _add(counts, fn(torch, card))
+            log(f"[qva] ({part}) {time.perf_counter() - t0:.1f} s (beside "
+                f"(c))")
+        _add(counts, side.finish())
+        log(f"[qva] (c) in its own process {side.seconds:.1f} s")
     log(f"[qva] phase 16 wall time {time.perf_counter() - t_phase:.1f} s; "
         f"launches {counts}; {card}")
     return counts

@@ -54,17 +54,31 @@ families serve through ``--fp`` only: ``--arch mamba2-1.3b`` and
 recurrent states and griffin's attention ring buffer in the linear cache);
 the packed path refuses them (``core/sites.py``).  ``--reduced`` serves
 the arch's tiny smoke config (2 layers, d 64), for the CPU.
+
+Mesh-native serving: ``--mesh-data D --mesh-model M`` (D x M > 1) starts
+D x M ranks itself (``torch.multiprocessing``, one process each, joined over
+``tcp://localhost``), each serving the same requests through
+``Engine(mesh=...)`` on its shards (column-parallel weights over "model",
+the batch over "data"); rank 0 prints the report with each rank's resident
+weight and KV bytes.  On the card each rank needs a card of its own (NCCL)
+unless ``--share-cards`` puts several on one card (gloo, collectives staged
+through the host); ``--device cpu`` runs the ranks on gloo.  A 1 x 1 mesh
+serves in process, as without the flags.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import statistics
+import tempfile
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core.calibration import (CalibConfig, finalize_model,
@@ -73,7 +87,10 @@ from repro_torch.core.quantizer import QuantConfig
 from repro_torch.core.sites import require_quantizable
 from repro_torch.data import MarkovCorpus
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _lib
 from repro_torch.launch.calibrate import load_float_params
+from repro_torch.launch.mesh import (backend_for, free_port, init_world,
+                                     make_serving_mesh)
 from repro_torch.models.init import init_block, init_lm, init_top, stack_layers
 from repro_torch.models.model import ENCODER_ONLY, Model
 from repro_torch.serve.engine import Engine, QueueFull, ServeConfig
@@ -127,8 +144,12 @@ def load_params(args, cfg, qcfg: QuantConfig, device,
         raise ValueError("--load-packed serves a packed tree; --ckpt and "
                          "--fp name a float one: pass one of them")
     if args.load_packed:
+        # on a mesh the whole tree stays on the CPU: each rank's Engine
+        # moves only its shards to the card
+        on_mesh = args.mesh_data * args.mesh_model > 1
         return checkpoints.load_tree(args.load_packed, cfg, qcfg,
-                                     device=device), None
+                                     device="cpu" if on_mesh else device
+                                     ), None
     if args.fp:
         return float_params or float_lm(args, cfg, qcfg, device), None
     if not (args.ckpt or args.calibrate or float_params):
@@ -194,6 +215,15 @@ def build_parser() -> argparse.ArgumentParser:
     fp.add_argument("--compare-fp", action="store_true",
                     help="serve the float tree, then the packed tree made "
                          "from it, and print their greedy agreement")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel mesh axis: each step's batch rows "
+                         "split across it")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel mesh axis: column-parallel "
+                         "weights and the KV cache's heads split across it")
+    ap.add_argument("--share-cards", action="store_true",
+                    help="let a mesh larger than the visible cards put "
+                         "several ranks on a card (gloo)")
     return ap
 
 
@@ -259,14 +289,16 @@ def submit_all(engine: Engine, prompts: list) -> list:
     return reqs
 
 
-def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
-    """Build, run and time one serving session; returns the engine, its
-    requests and the measurements.  ``params``: as in :func:`build_model`."""
+def serve(args: argparse.Namespace, params: Optional[dict] = None,
+          mesh=None) -> dict:
+    """Build, run and time one serving session (on ``mesh``: this rank's
+    part of it); returns the engine, its requests and the measurements.
+    ``params``: as in :func:`build_model`."""
     if args.prefix_cache and not args.paged:
         raise ValueError("--prefix-cache shares pages of the paged KV "
                          "cache: add --paged")
     cfg, qcfg, params, model, fake = build_model(args, params)
-    engine = Engine(model, params, serve_config(args))
+    engine = Engine(model, params, serve_config(args), mesh=mesh)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
                for _ in range(args.requests)]
@@ -283,7 +315,7 @@ def serve(args: argparse.Namespace, params: Optional[dict] = None) -> dict:
     reqs = engine.run()          # nothing left: returns the requests
     generated = sum(len(r.out_tokens) for r in reqs)
     return {"cfg": cfg, "qcfg": qcfg, "model": model, "params": params,
-            "tag": "fp" if args.fp else qcfg.tag(),
+            "mesh": mesh, "tag": "fp" if args.fp else qcfg.tag(),
             "fake": fake, "engine": engine, "requests": reqs,
             "prompts": prompts,
             "seconds": seconds, "generated": generated,
@@ -303,7 +335,7 @@ def serve_prefix(args: argparse.Namespace, out: dict) -> dict:
     scfg = dataclasses.replace(
         serve_config(args), prefix_cache=True, num_pages=num_pages,
         prefill_chunk=args.prefill_chunk or args.page_size)
-    engine = Engine(out["model"], out["params"], scfg)
+    engine = Engine(out["model"], out["params"], scfg, mesh=out["mesh"])
     waves = {}
     for wave in ("cold", "replay"):
         t0 = time.perf_counter()
@@ -380,9 +412,11 @@ def packed_and_fake_logits(model: QuantizedModel, params: dict, fake: dict,
     return packed, sim
 
 
-def report(args: argparse.Namespace, out: dict) -> dict:
+def report(args: argparse.Namespace, out: dict, echo: bool = True) -> dict:
     """Print one serving run's lines (and serve the prefix waves when
-    ``--prefix-cache`` asks); returns ``out``."""
+    ``--prefix-cache`` asks); returns ``out``.  ``echo`` False computes
+    without printing (the ranks of a mesh other than 0)."""
+    print = _printer(echo)
     print(f"[serve] {out['cfg'].name} x{out['cfg'].num_layers} layers "
           f"{out['tag']} on {out['model'].device}: "
           f"{out['generated']} tokens in {out['seconds']:.3f} s = "
@@ -417,13 +451,23 @@ def report(args: argparse.Namespace, out: dict) -> dict:
               f"{st['matched_tokens']} prompt tokens adopted from resident "
               f"pages, {st['prefilled_tokens']} prefilled")
         out["prefix"] = px
+    if out["mesh"] is not None:
+        print(f"[serve] per-device resident memory: weights "
+              f"{out['weight_bytes'] / 2**20:.2f} MiB, kv cache "
+              f"{out['kv_bytes'] / 2**20:.2f} MiB (x{out['device_count']} "
+              f"devices)")
     print(f"[serve] weight bytes {out['weight_bytes']}, KV bytes "
           f"{out['kv_bytes']}, preemptions {out['preemptions']}, statuses "
           f"{out['statuses']}")
     return out
 
 
-def compare_fp(args: argparse.Namespace) -> dict:
+def _printer(echo: bool):
+    return print if echo else (lambda *a, **k: None)
+
+
+def compare_fp(args: argparse.Namespace, mesh=None, echo: bool = True
+               ) -> dict:
     """``--compare-fp``: the float tree served through ``Model``, then the
     packed tree made from it (RTN, or ``--calibrate``), and with
     ``--calibrate`` the fake-quant tree through ``Model``; prints the
@@ -434,21 +478,25 @@ def compare_fp(args: argparse.Namespace) -> dict:
         raise ValueError("--compare-fp needs the float tree the packed one "
                          "is made from: drop --load-packed")
     device = resolve_device(args.device)
+    fp_args = argparse.Namespace(**{**vars(args), "fp": True,
+                                    "compare_fp": False})
+    # both runs' refusals (an encoder has no float decode path) come
+    # before any float weight is made
+    arch_config(fp_args)
     cfg = arch_config(args)
     qcfg = quant_config(args)
     float_params = float_lm(args, cfg, qcfg, device)
-    fp_args = argparse.Namespace(**{**vars(args), "fp": True,
-                                    "compare_fp": False})
-    fp = report(fp_args, serve(fp_args, float_params))
+    fp = report(fp_args, serve(fp_args, float_params, mesh), echo)
     packed, fake = load_params(args, cfg, qcfg, device, float_params)
-    out = serve(args, packed)
+    out = serve(args, packed, mesh)
     out["fake"] = fake
-    report(args, out)
+    report(args, out, echo)
+    print = _printer(echo)
     streams = lambda o: [r.out_tokens for r in o["requests"]]
     print(f"[serve] greedy-token agreement fp vs packed-{out['tag']}: "
           f"{agreement(streams(fp), streams(out)):.4f}")
     if fake is not None:
-        quant = report(fp_args, serve(fp_args, fake))
+        quant = report(fp_args, serve(fp_args, fake, mesh), echo)
         print(f"[serve] greedy-token agreement fp vs quant: "
               f"{agreement(streams(fp), streams(quant)):.4f}; quant vs "
               f"packed-{out['tag']}: "
@@ -461,11 +509,81 @@ def compare_fp(args: argparse.Namespace) -> dict:
     return out
 
 
+def run(args: argparse.Namespace, mesh=None, echo: bool = True) -> dict:
+    """The session the flags ask for (on ``mesh``: this rank's part)."""
+    if args.compare_fp:
+        return compare_fp(args, mesh, echo)
+    return report(args, serve(args, mesh=mesh), echo)
+
+
+def rank_summary(out: dict) -> dict:
+    """What a rank of a mesh reports: its streams, statuses, preemptions,
+    resident bytes, kernel launches and step times."""
+    return {"streams": [list(r.out_tokens) for r in out["requests"]],
+            "statuses": [r.status.name for r in out["requests"]],
+            "preemptions": out["preemptions"],
+            "memory": out["engine"].memory_report(),
+            "launches": dict(_lib.LAUNCHES),
+            "step_seconds": out["step_seconds"], "seconds": out["seconds"],
+            "generated": out["generated"]}
+
+
+def _rank_main(rank: int, args: argparse.Namespace, world: int, port: int,
+               out_dir: str) -> None:
+    """One rank of :func:`serve_on_mesh`: join the group, serve, write the
+    rank's summary as JSON into ``out_dir``."""
+    if torch.device(args.device).type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    backend = init_world(rank, world, port, args.device)
+    try:
+        mesh = make_serving_mesh(args.mesh_data, args.mesh_model,
+                                 device=args.device)
+        if rank == 0:
+            cards = (torch.cuda.device_count()
+                     if torch.device(args.device).type == "cuda" else 0)
+            print(f"[serve] mesh (data={args.mesh_data}, model="
+                  f"{args.mesh_model}): {world} ranks, backend {backend}"
+                  + (f", on {min(cards, world)} card(s)" if cards else
+                     " on the CPU"))
+        out = run(args, mesh, echo=rank == 0)
+        summary = dict(rank_summary(out), rank=rank, backend=backend,
+                       coordinate=list(mesh.get_coordinate()))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_on_mesh(args: argparse.Namespace) -> dict:
+    """Start ``--mesh-data x --mesh-model`` ranks, each serving its part of
+    the session, and return their summaries (``ranks``, in rank order) with
+    rank 0's beside them.  A rank that fails fails the call."""
+    import torch.multiprocessing as mp
+    world = args.mesh_data * args.mesh_model
+    if args.mesh_data < 1 or args.mesh_model < 1:
+        raise ValueError(f"mesh axes must be positive; got data="
+                         f"{args.mesh_data}, model={args.mesh_model}")
+    device = resolve_device(args.device)
+    if device.type == "cuda" and torch.cuda.device_count() < world \
+            and not args.share_cards:
+        raise ValueError(
+            f"mesh (data={args.mesh_data}, model={args.mesh_model}) needs "
+            f"{world} cards but {torch.cuda.device_count()} are visible: "
+            f"shrink --mesh-data / --mesh-model, or pass --share-cards to "
+            f"put several ranks on a card (gloo)")
+    backend_for(device, world)          # refuses what no backend serves
+    with tempfile.TemporaryDirectory() as out_dir:
+        mp.spawn(_rank_main, args=(args, world, free_port(), out_dir),
+                 nprocs=world, join=True)
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    return dict(ranks[0], ranks=ranks)
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.compare_fp:
-        return compare_fp(args)
-    return report(args, serve(args))
+    if args.mesh_data * args.mesh_model > 1:
+        return serve_on_mesh(args)
+    return run(args)
 
 
 if __name__ == "__main__":

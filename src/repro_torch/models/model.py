@@ -78,6 +78,9 @@ class Model(transformer.ServingTrunk):
     device: str = "cuda"
     mode: str = "auto"
     block_kv: Optional[int] = None
+    # one rank's view of a serving mesh (the Engine sets it)
+    tp: Optional[object] = dataclasses.field(default=None, compare=False,
+                                             repr=False)
 
     kv_bits = 16
 
@@ -291,6 +294,110 @@ class Model(transformer.ServingTrunk):
                     ri += 1
         cache["len"] = (cur_len + 1).to(torch.int32)
         return self._head(params, x), cache
+
+    # ---- sharding ------------------------------------------------------
+    def param_logical_axes(self) -> dict:
+        """Logical axis names of every parameter (the tree's structure),
+        the reference's table: q/k/v and the MLP's up-projections split
+        their outputs ("heads" / "kv_heads" / "mlp"), wo and w_down their
+        inputs, the embedding and head the vocabulary; "fsdp_embed" marks
+        the input-feature axes FSDP would split."""
+        cfg = self.cfg
+        L = ("layers",)
+
+        def norm_ax(stacked: bool):
+            base = {"scale": (L if stacked else ()) + (None,)}
+            if cfg.norm == "layernorm":
+                base["bias"] = (L if stacked else ()) + (None,)
+            return base
+
+        def mlp_ax(stacked: bool):
+            pre = L if stacked else ()
+            ax = {"w_up": pre + ("fsdp_embed", "mlp"),
+                  "w_down": pre + ("mlp", "fsdp_embed")}
+            if cfg.act in ("swiglu", "geglu"):
+                ax["w_gate"] = pre + ("fsdp_embed", "mlp")
+            return ax
+
+        def attn_ax(stacked: bool):
+            pre = L if stacked else ()
+            ax = {"ln_attn": norm_ax(stacked),
+                  "wq": pre + ("fsdp_embed", "heads"),
+                  "wk": pre + ("fsdp_embed", "kv_heads"),
+                  "wv": pre + ("fsdp_embed", "kv_heads"),
+                  "wo": pre + ("heads", "fsdp_embed"),
+                  "ln_mlp": norm_ax(stacked)}
+            if cfg.qkv_bias:
+                ax["bq"] = pre + ("heads",)
+                ax["bk"] = pre + ("kv_heads",)
+                ax["bv"] = pre + ("kv_heads",)
+            if cfg.num_experts:
+                ax["moe"] = {"router": pre + ("fsdp_embed", None),
+                             "w_up": pre + ("expert", "fsdp_embed", None),
+                             "w_down": pre + ("expert", None, "fsdp_embed")}
+                if cfg.act in ("swiglu", "geglu"):
+                    ax["moe"]["w_gate"] = pre + ("expert", "fsdp_embed",
+                                                 None)
+            else:
+                ax["mlp"] = mlp_ax(stacked)
+            return ax
+
+        if cfg.family == "mamba2":
+            lx = {"norm": norm_ax(True),
+                  "in_proj": L + ("fsdp_embed", "inner"),
+                  "conv_w": L + (None, "inner"),
+                  "conv_b": L + ("inner",),
+                  "a_log": L + (None,),
+                  "d_skip": L + (None,),
+                  "dt_bias": L + (None,),
+                  "gate_norm": {"scale": L + (None,)},
+                  "out_proj": L + ("inner", "fsdp_embed")}
+        elif cfg.family == "griffin":
+            lx = []
+            for i in range(cfg.num_layers):
+                if griffin_is_attn(cfg, i):
+                    lx.append({"kind_attn": attn_ax(False)})
+                    continue
+                lx.append({"kind_rec": {
+                    "rglru": {"norm": norm_ax(False),
+                              "w_rec": ("fsdp_embed", "rnn"),
+                              "w_gate": ("fsdp_embed", "rnn"),
+                              "conv_w": (None, "rnn"),
+                              "conv_b": ("rnn",),
+                              "gate_a_w": ("rnn",), "gate_a_b": ("rnn",),
+                              "gate_x_w": ("rnn",), "gate_x_b": ("rnn",),
+                              "lam": ("rnn",),
+                              "w_out": ("rnn", "fsdp_embed")},
+                    "ln_mlp": norm_ax(False),
+                    "mlp": mlp_ax(False)}})
+        else:
+            lx = attn_ax(True)
+        axes = {"embed": ("vocab", "fsdp_embed"), "layers": lx,
+                "ln_f": norm_ax(False)}
+        if not cfg.tie_embeddings:
+            axes["head"] = ("fsdp_embed", "vocab")
+        return axes
+
+    def cache_logical_axes(self, cache) -> dict:
+        """Logical axes of a decode cache: K/V split over their KV heads
+        ("cache_heads"), positions whole on every rank; a paged cache's by
+        field (:func:`~repro_torch.serve.kv_cache.paged_cache_logical_axes`).
+        """
+        from repro_torch.serve.kv_cache import (PagedKVCache,
+                                                paged_cache_logical_axes)
+        if isinstance(cache, PagedKVCache):
+            return paged_cache_logical_axes(cache)
+        axes: dict = {"len": ("batch",)}
+        if "k" in cache:
+            axes["k"] = ("layers", "batch", None, "cache_heads", None)
+            axes["v"] = ("layers", "batch", None, "cache_heads", None)
+        if "ssm" in cache:
+            axes["ssm"] = ("layers", "batch", "ssm_heads", None, None)
+            axes["conv"] = ("layers", "batch", None, "act_inner")
+        if "rnn" in cache:
+            axes["rnn"] = ("layers", "batch", "act_rnn")
+            axes["conv"] = ("layers", "batch", None, "act_rnn")
+        return axes
 
 
 def build_model(cfg: ModelConfig, device="cuda", mode: str = "auto") -> Model:

@@ -188,15 +188,17 @@ def lm_loss(params: dict, cfg, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, *, kv_bits: int = 16,
-               device="cpu") -> dict:
+               device="cpu", num_kv_heads: Optional[int] = None) -> dict:
     """Linear decode cache: ``k``/``v`` (L, B, S, Hkv, D) in ``cfg.dtype``
     and ``len`` (B,) int32.  kv8 stores int8 codes at that shape with
     float32 ``k_scale``/``v_scale`` (L, B, S, Hkv); kv4 packed int4 nibbles
     (L, B, S, Hkv, D // 2) with bf16 block-32 scales (L, B, S, Hkv,
     D // 32).  Only the trailing dims differ, so the cache helpers that
-    touch the leading (L, B, S) dims serve every format."""
+    touch the leading (L, B, S) dims serve every format.
+    ``num_kv_heads`` overrides the config's (a rank's head slice)."""
     d = cfg.resolved_head_dim
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, d)
+    shape = (cfg.num_layers, batch, max_len,
+             num_kv_heads or cfg.num_kv_heads, d)
     if kv_bits >= 16:
         dt = getattr(torch, cfg.dtype)
         cache = {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -253,10 +255,23 @@ class ServingTrunk:
     The cache is updated in place: ``prefill_chunk`` and ``decode_step``
     write into the cache they are given and return it.  A write past
     ``max_len`` (or into an unallocated page) is dropped (slot ``max_len -
-    1`` keeps its token) and ``len`` saturates at capacity."""
+    1`` keeps its token) and ``len`` saturates at capacity.
+
+    On a mesh (``tp``, a :class:`~repro_torch.serve.tensor_parallel.
+    TensorParallel` the Engine sets) the trunk runs one rank's local
+    shards: q/k/v and the MLP's up-projections hold this rank's output
+    columns, a whole-K ``wo`` / ``w_down`` takes its input gathered over
+    "model" (a row-split one sums its partial products), the embedding
+    and head hold this rank's vocabulary slice, and attention runs on this
+    rank's heads where "model" divides the KV heads (else whole, on
+    gathered q/k/v).  Decode and chunk steps take this rank's rows where
+    "data" divides the batch: a linear cache holds only those rows, a
+    page pool all of them (each step's new K/V gathered over "data"), and
+    the hidden states are gathered before the head."""
 
     supports_padded_prefill = True     # causal dense trunk: end padding
     supports_chunked_prefill = True    # is exact, chunks read the cache
+    tp = None                          # a TensorParallel on a mesh
 
     @property
     def kv_quantized(self) -> bool:
@@ -264,14 +279,15 @@ class ServingTrunk:
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return init_cache(self.cfg, batch, max_len, kv_bits=self.kv_bits,
-                          device=self.device)
+                          device=self.device,
+                          num_kv_heads=self._heads()[1])
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
                          max_pages_per_seq: int) -> PagedKVCache:
         """Page pools in the linear cache's per-token layout."""
         cfg = self.cfg
         return kv_cache.make_paged_cache(
-            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+            num_layers=cfg.num_layers, num_kv_heads=self._heads()[1],
             head_dim=cfg.resolved_head_dim, batch=batch,
             num_pages=num_pages, page_size=page_size,
             max_pages_per_seq=max_pages_per_seq,
@@ -291,17 +307,66 @@ class ServingTrunk:
         kv16."""
         return k, v
 
+    # ---- mesh helpers (identities without ``tp``) ------------------------
+    def _heads(self) -> tuple:
+        """(query heads, KV heads) this rank attends."""
+        cfg, tp = self.cfg, self.tp
+        if tp is None or not tp.heads:
+            return cfg.num_heads, cfg.num_kv_heads
+        return cfg.num_heads // tp.m, cfg.num_kv_heads // tp.m
+
+    def _rows(self, b: int) -> Optional[slice]:
+        return None if self.tp is None else self.tp.rows(b)
+
+    def _gather_rows(self, x: torch.Tensor, rows) -> torch.Tensor:
+        return x if rows is None else self.tp.gather(x, "data", dim=0)
+
+    def _whole(self, y: torch.Tensor, full: int) -> torch.Tensor:
+        """A column-split output gathered over "model"."""
+        return self.tp.gather(y, "model") if y.shape[-1] < full else y
+
+    def _bias(self, y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """y + b, a replicated bias cut to y's columns."""
+        return y + (b if self.tp is None else self.tp.cols(b, y.shape[-1]))
+
+    def _out(self, h: torch.Tensor, w, full: int) -> torch.Tensor:
+        """``h @ w`` for wo / w_down (``full`` input features): a whole-K
+        ``w`` takes ``h`` gathered over "model"; a row-split one takes this
+        rank's features and its partial products are summed."""
+        tp = self.tp
+        if tp is None:
+            return self._mm(h, w)
+        k = w.d_in if hasattr(w, "d_in") else w.shape[-2]
+        if k == full:
+            return self._mm(self._whole(h, full), w)
+        return tp.sum(self._mm(tp.cols(h, k), w), "model")
+
     def _embed(self, params: dict, tokens: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
         """Token embeddings; a no-RoPE model adds the sinusoidal
-        embedding of ``pos`` (tokens' shape)."""
-        x = params["embed"][tokens.long()]
+        embedding of ``pos`` (tokens' shape).  A rank holding a slice of
+        the vocabulary looks up the tokens it holds, zeros elsewhere, and
+        the ranks' rows are summed."""
+        emb, tp = params["embed"], self.tp
+        if tp is not None and emb.shape[0] < self.cfg.vocab_size:
+            n = emb.shape[0]
+            idx = tokens.long() - tp.mi * n
+            mine = ((idx >= 0) & (idx < n))[..., None]
+            x = tp.sum(torch.where(mine, emb[idx.clamp(0, n - 1)],
+                                   emb.new_zeros(())), "model")
+        else:
+            x = emb[tokens.long()]
         if not self.cfg.rope_theta:
             x = x + sinusoidal_at(pos, self.cfg.d_model).to(x.dtype)
         return x
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return head(params, self.cfg, x)
+        """Final norm and head; a vocabulary-split head's logits gathered
+        over "model"."""
+        logits = head(params, self.cfg, x)
+        if self.tp is not None:
+            logits = self._whole(logits, self.cfg.vocab_size)
+        return logits
 
     def _ints(self, x, fill: int, n: int) -> torch.Tensor:
         if x is None:
@@ -319,8 +384,8 @@ class ServingTrunk:
         bsz, t = tokens.shape
         lengths = self._ints(batch.get("lengths"), t, bsz)
         cache = self.init_cache(bsz, max(max_len, t))
-        x = self._forward_chunk(params, tokens, lengths, cache,
-                                torch.zeros_like(lengths))
+        x, _ = self._forward_chunk(params, tokens, lengths, cache,
+                                   torch.zeros_like(lengths), split=False)
         x = x[torch.arange(bsz, device=self.device), lengths.long() - 1]
         return self._head(params, x[:, None]), cache
 
@@ -336,38 +401,50 @@ class ServingTrunk:
         bsz, c = tokens.shape
         chunk_len = self._ints(batch.get("chunk_len"), c, bsz)
         offset = self._ints(offset, 0, bsz)
-        x = self._forward_chunk(params, tokens, chunk_len, cache, offset)
+        x, rows = self._forward_chunk(params, tokens, chunk_len, cache,
+                                      offset, split=True)
         if last_only:
-            rows = torch.clamp_min(chunk_len.long() - 1, 0)
-            x = x[torch.arange(bsz, device=self.device), rows][:, None]
-        return self._head(params, x), cache
+            if rows is not None:
+                chunk_len = chunk_len[rows]
+            last = torch.clamp_min(chunk_len.long() - 1, 0)
+            x = x[torch.arange(x.shape[0], device=self.device), last][:, None]
+        return self._head(params, self._gather_rows(x, rows)), cache
 
-    def _forward_chunk(self, params, tokens, chunk_len, cache, offset):
+    def _forward_chunk(self, params, tokens, chunk_len, cache, offset,
+                       split: bool):
         """Embed -> blocks (cache write + as-stored attention); returns the
-        pre-norm hidden states (B, C, d) and updates ``cache`` in place."""
+        pre-norm hidden states (B, C, d) — this rank's rows where ``split``
+        and "data" divides B — and the rows' slice (None: all), and
+        updates ``cache`` in place."""
         bsz, c = tokens.shape
+        rows = self._rows(bsz) if split else None
         pos = offset[:, None] + torch.arange(c, device=self.device)[None, :]
-        x = self._embed(params, tokens, pos)
         page_table = None
         if isinstance(cache, PagedKVCache):
             page_table, cap = cache.page_table, cache.capacity
-            rows = cache.num_pages * cache.page_size
             write = kv_cache.paged_chunk_write_index(kv_cache.chunk_write_dest(
                 page_table, offset, chunk_len, c, cache.page_size,
-                cache.num_pages), rows)
-        else:
+                cache.num_pages), cache.num_pages * cache.page_size)
+            cache.lens = torch.clamp_max(offset + chunk_len, cap).to(
+                torch.int32)
+        if rows is not None:
+            # this rank's rows; a page pool still takes every row's writes
+            tokens, pos, offset, chunk_len = (t[rows] for t in (
+                tokens, pos, offset, chunk_len))
+            if page_table is not None:
+                page_table = page_table[rows]
+        if page_table is None:
             cap = cache["k"].shape[2]
             write = chunk_write_index(offset, chunk_len, c, cap)
+        x = self._embed(params, tokens, pos)
         for i in range(self.cfg.num_layers):
             x = self._block_prefill_chunk(
                 layer(params["layers"], i), x, self._kv_entries(cache, i),
-                pos, offset, chunk_len, write, page_table)
-        lens = torch.clamp_max(offset + chunk_len, cap).to(torch.int32)
+                pos, offset, chunk_len, write, page_table, rows)
         if page_table is None:
-            cache["len"] = lens
-        else:
-            cache.lens = lens
-        return x
+            cache["len"] = torch.clamp_max(offset + chunk_len, cap).to(
+                torch.int32)
+        return x, rows
 
     def _qkv(self, p, x, pos):
         """norm -> activation transform -> q/k/v (+ biases) -> RoPE (RoPE
@@ -378,19 +455,39 @@ class ServingTrunk:
         h = act_transform(p.get("attn_t"), h)
         q, k, v = (self._mm(h, p[w]) for w in ("wq", "wk", "wv"))
         if "bq" in p:
-            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+            q, k, v = (self._bias(y, p[n]) for y, n in
+                       ((q, "bq"), (k, "bk"), (v, "bv")))
         hd = cfg.resolved_head_dim
-        q = q.reshape(b, t, cfg.num_heads, hd)
-        k = k.reshape(b, t, cfg.num_kv_heads, hd)
+        if self.tp is not None and not self.tp.heads:
+            # attention whole on every rank: q/k/v gathered over "model"
+            q = self._whole(q, cfg.num_heads * hd)
+            k, v = (self._whole(y, cfg.num_kv_heads * hd) for y in (k, v))
+        hq, hkv = self._heads()
+        q = q.reshape(b, t, hq, hd)
+        k = k.reshape(b, t, hkv, hd)
         if cfg.rope_theta > 0:
             q = layers.apply_rope(q, pos, cfg.rope_theta)
             k = layers.apply_rope(k, pos, cfg.rope_theta)
-        return q, k, v.reshape(b, t, cfg.num_kv_heads, hd)
+        return q, k, v.reshape(b, t, hkv, hd)
+
+    def _wo(self, p, out: torch.Tensor) -> torch.Tensor:
+        """The attention output (B, T, heads here x D) through ``wo``."""
+        return self._out(out.reshape(*out.shape[:2], -1), p["wo"],
+                         self.cfg.num_heads * self.cfg.resolved_head_dim)
+
+    def _new_kv(self, k, v, rows) -> tuple:
+        """Every row's new K/V for a page pool: this rank's rows gathered
+        over "data" where the step split them."""
+        if rows is None:
+            return k, v
+        kv = self.tp.gather(torch.stack((k, v)), "data", dim=1)
+        return kv[0], kv[1]
 
     def _block_prefill_chunk(self, p, x, kv, pos, offset, chunk_len, write,
-                             page_table=None):
-        b, c = x.shape[0], x.shape[1]
+                             page_table=None, rows=None):
         q, k, v = self._qkv(p, x, pos)
+        if page_table is not None:
+            k, v = self._new_kv(k, v, rows)
         b_idx, c_idx, dest = write
         for ct, val in zip(kv, self._kv_values(k, v)):
             if page_table is None:
@@ -400,7 +497,7 @@ class ServingTrunk:
         out = ops.flash_prefill(q, kv, offset, chunk_len,
                                 block_kv=self.block_kv,
                                 page_table=page_table, mode=self.mode)
-        x = x + self._mm(out.reshape(b, c, -1), p["wo"])
+        x = x + self._wo(p, out)
         return x + self._mlp(p, x)
 
     def _block_full_kv(self, p, x, pos, *, window: int = 0,
@@ -421,7 +518,7 @@ class ServingTrunk:
         else:
             out = attn_lib.attention(q, k, v, causal=self.cfg.causal,
                                      window=window, prefix_len=prefix_len)
-        x = x + self._mm(out.reshape(b, t, -1), p["wo"])
+        x = x + self._wo(p, out)
         return x + self._mlp(p, x), k, v
 
     # ---- decode --------------------------------------------------------
@@ -430,16 +527,18 @@ class ServingTrunk:
         row's K/V at position ``len`` (dropped when the row is full, or its
         page unallocated) and advancing ``len`` (saturating at capacity)."""
         token = torch.as_tensor(token).to(self.device)
-        paged = isinstance(cache, PagedKVCache)
-        cur_len = cache.lens if paged else cache["len"]
+        if isinstance(cache, PagedKVCache):
+            return self._decode_step_paged(params, token, cache)
+        rows = self._rows(token.shape[0])
+        if rows is not None:
+            token = token[rows]          # the cache holds only these rows
+        cur_len = cache["len"]
         x = self._embed(params, token, cur_len[:, None])
-        if paged:
-            return self._decode_step_paged(params, x, cache)
         s = cache["k"].shape[2]
         for i in range(self.cfg.num_layers):
             x = self._block_decode(layer(params["layers"], i), x,
                                    self._kv_entries(cache, i), cur_len)
-        logits = self._head(params, x)
+        logits = self._head(params, self._gather_rows(x, rows))
         cache["len"] = torch.clamp_max(cur_len + 1, s).to(torch.int32)
         return logits, cache
 
@@ -468,33 +567,40 @@ class ServingTrunk:
                 ct[rows, idx] = torch.where(mask, old, val.to(ct.dtype))
         out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, s),
                                block_kv=self.block_kv, mode=self.mode)
-        x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
+        x = x + self._wo(p, out)
         return x + self._mlp(p, x)
 
-    def _decode_step_paged(self, params: dict, x, cache: PagedKVCache):
+    def _decode_step_paged(self, params: dict, token, cache: PagedKVCache):
         """The decode step over page pools: the token's K/V land in the
         sequence's current page through the page table, attention walks only
         the allocated pages.  Same math as the linear step."""
         cur_len, cap = cache.lens, cache.capacity
-        rows = cache.num_pages * cache.page_size
         write = kv_cache.token_write_index(kv_cache.token_write_dest(
-            cache.page_table, cur_len, cache.page_size, cache.num_pages), rows)
+            cache.page_table, cur_len, cache.page_size, cache.num_pages),
+            cache.num_pages * cache.page_size)
+        rows = self._rows(token.shape[0])
+        mine, page_table = cur_len, cache.page_table
+        if rows is not None:
+            token, mine, page_table = token[rows], mine[rows], \
+                page_table[rows]
+        x = self._embed(params, token, mine[:, None])
         for i in range(self.cfg.num_layers):
             x = self._block_decode_paged(layer(params["layers"], i), x,
-                                         self._kv_entries(cache, i), cur_len,
-                                         cache.page_table, write, cap)
-        logits = self._head(params, x)
+                                         self._kv_entries(cache, i), mine,
+                                         page_table, write, cap, rows)
+        logits = self._head(params, self._gather_rows(x, rows))
         cache.lens = torch.clamp_max(cur_len + 1, cap).to(torch.int32)
         return logits, cache
 
-    def _block_decode_paged(self, p, x, kv, cur_len, page_table, write, cap):
-        b = x.shape[0]
+    def _block_decode_paged(self, p, x, kv, cur_len, page_table, write, cap,
+                            rows=None):
         q, k, v = self._qkv(p, x, cur_len[:, None])
+        k, v = self._new_kv(k, v, rows)
         for ct, val in zip(kv, self._kv_values(k[:, 0], v[:, 0])):
             kv_cache.paged_token_write(ct, val, write)
         out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, cap),
                                page_table=page_table, mode=self.mode)
-        x = x + self._mm(out.reshape(b, 1, -1), p["wo"])
+        x = x + self._wo(p, out)
         return x + self._mlp(p, x)
 
     # ---- mlp -----------------------------------------------------------
@@ -507,9 +613,10 @@ class ServingTrunk:
 
         def lin(wn, bn):
             y = self._mm(h, mp[wn])
-            return y + mp[bn] if bn in mp else y
+            return self._bias(y, mp[bn]) if bn in mp else y
 
-        return self._mm(layers.mlp_hidden(lin, self.cfg.act), mp["w_down"])
+        return self._out(layers.mlp_hidden(lin, self.cfg.act), mp["w_down"],
+                         self.cfg.d_ff)
 
     def _moe_apply(self, mp: dict, h: torch.Tensor) -> torch.Tensor:
         """The MoE half on float experts.  Capacity is per call, so

@@ -67,6 +67,21 @@ prefix (refcounted shares) and reports the matched token count; prefill
 starts there.  A ``FAILED_NAN`` retirement fails the co-readers of the
 slot's shared pages too, rather than let them attend to suspect K/V.
 ``prefix_stats`` counts lookups, hits, matched and prefilled tokens.
+
+Mesh-native serving (``mesh``, a (data, model) ``DeviceMesh`` from
+:func:`repro_torch.launch.mesh.make_serving_mesh`; one Engine per rank):
+the weights and the cache are cut once, at construction, to this rank's
+shards under ``rules`` (default :func:`repro_torch.sharding.
+make_serving_rules`): QTensor linears column-parallel over "model" with
+codes, scale and zero points cut alike, ``wo`` / ``w_down`` whole, the
+vocabulary split, the cache over its KV heads (a linear cache's batch
+over "data").  The model runs them through its ``tp``
+(:class:`~repro_torch.serve.tensor_parallel.TensorParallel`).  The
+scheduler is unchanged and runs the same on every rank: page tables,
+lens, last tokens, sampling seeds and fault probes are replicated host
+state, and every rank samples the same logits, so admission, eviction,
+preemption, quarantine and prefix sharing decide the same everywhere and
+the streams equal the unsharded engine's.
 """
 from __future__ import annotations
 
@@ -83,6 +98,9 @@ import torch
 from repro_torch.core.qtensor import QTensor
 from repro_torch.serve import faults as flt
 from repro_torch.serve.kv_cache import LinearCache, PagedCache
+from repro_torch.serve.tensor_parallel import TensorParallel
+from repro_torch.sharding import (make_serving_rules, shard_tree,
+                                  tree_shardings)
 
 logger = logging.getLogger(__name__)
 
@@ -231,9 +249,24 @@ def sample(lg: torch.Tensor, temperature: float, top_k: int,
     return torch.argmax(score, dim=-1)
 
 
+def mesh_refusal(model) -> Optional[str]:
+    """What of ``model`` a mesh cannot serve yet, or None: the dense trunk
+    (float or packed, the packed vlm and audio token trunks included)
+    shards; the MoE, recurrent and float-vlm families wait."""
+    cfg = model.cfg
+    if cfg.num_experts:
+        return "the MoE family (experts over \"model\")"
+    if cfg.family in ("mamba2", "griffin"):
+        return f"the {cfg.family} family (its recurrent width over \"model\")"
+    if cfg.family == "vlm" and not hasattr(model, "qcfg"):
+        return "the float vlm with its prefix"
+    return None
+
+
 class Engine:
     def __init__(self, model, params: dict, cfg: ServeConfig,
-                 faults: Optional[flt.FaultPlan] = None):
+                 faults: Optional[flt.FaultPlan] = None, *, mesh=None,
+                 rules: Optional[dict] = None):
         if cfg.max_new < 1:
             raise ValueError(f"max_new={cfg.max_new}: a request must be "
                              f"allowed at least one generated token")
@@ -251,8 +284,10 @@ class Engine:
                 f"chunked admission (prefill_chunk={cfg.prefill_chunk}) "
                 f"needs model.prefill_chunk; {type(model).__name__} does "
                 f"not support it")
-        self.model = model
-        self.params = params
+        if mesh is not None and mesh_refusal(model):
+            raise NotImplementedError(
+                f"Engine(mesh=...): {mesh_refusal(model)} is not sharded "
+                f"yet (ROADMAP queue 1, item 6); serve it with mesh=None")
         self.cfg = cfg
         self._faults = faults
         # end-padded prompts are exact only for the causal trunk: the
@@ -268,6 +303,14 @@ class Engine:
                                   prefix_cache=cfg.prefix_cache)
         else:
             self._kv = LinearCache(model, cfg.max_batch, cfg.max_len)
+        self.mesh = mesh
+        self.rules = None
+        if mesh is not None:
+            self.rules = (dict(rules) if rules is not None
+                          else make_serving_rules())
+            model, params = self._place(model, params)
+        self.model = model
+        self.params = params
         self._pending: deque[Request] = deque()
         self._all: list[Request] = []
         self._slots: list[Optional[Request]] = [None] * cfg.max_batch
@@ -282,6 +325,35 @@ class Engine:
         self._progress = 0       # tokens streamed + chunks + retirements
         self.prefix_stats = {"lookups": 0, "hits": 0,
                              "matched_tokens": 0, "prefilled_tokens": 0}
+
+    def _place(self, model, params: dict) -> tuple:
+        """Shard once, at rest: the weights through
+        ``model.param_logical_axes()`` (moved to the model's device as they
+        are cut, so a whole tree on the CPU never reaches the card) and the
+        store's cache through ``cache_logical_axes``; returns the model bound
+        to this rank (``tp``) and its shards."""
+        mesh, rules = self.mesh, self.rules
+        specs = tree_shardings(model.param_logical_axes(), params, mesh, rules)
+        params = shard_tree(params, specs, mesh, device=model.device)
+        cache = self._kv.cache
+        cspecs = tree_shardings(model.cache_logical_axes(cache), cache, mesh,
+                                rules)
+        kspec = cspecs.k if self.cfg.paged else cspecs["k"]
+        kspec = kspec + (None,) * (5 - len(kspec))
+        batch = rules.get("batch")
+        tp = TensorParallel(mesh, model.cfg, heads=kspec[3] == "model",
+                            batch="data" in ((batch,) if isinstance(batch, str)
+                                             else tuple(batch or ())))
+        local = shard_tree(cache, cspecs, mesh)
+        rows = None if self.cfg.paged else tp.rows(self.cfg.max_batch)
+        if (rows is not None) != (kspec[1] == "data" and tp.d > 1):
+            raise ValueError(f"the linear cache's batch spec {kspec[1]!r} "
+                             f"disagrees with the step's row split {rows}")
+        if rows is not None:
+            self._kv.hold_rows(local, rows)
+        else:
+            self._kv.cache = local
+        return dataclasses.replace(model, tp=tp), params
 
     # ---- submission / cancellation ---------------------------------------
     def submit(self, prompt, on_token=None, on_done=None,
@@ -339,7 +411,11 @@ class Engine:
         return counts
 
     def memory_report(self) -> dict:
-        return {"weight_bytes": tree_bytes(self.params),
+        """This rank's resident weight and KV bytes, and the number of
+        ranks that hold the model (1 without a mesh)."""
+        tp = self.model.tp
+        return {"device_count": 1 if tp is None else tp.size,
+                "weight_bytes": tree_bytes(self.params),
                 "kv_bytes": self._kv.cache_bytes()}
 
     @property

@@ -229,6 +229,25 @@ def make_paged_cache(*, num_layers: int, num_kv_heads: int, head_dim: int,
         k_scale=ks, v_scale=vs, page_size=page_size)
 
 
+def paged_cache_logical_axes(cache: PagedKVCache) -> dict:
+    """Logical axes of a paged cache, keyed by field: the pools split their
+    KV-head dim ("cache_heads"), so every page is whole on every rank and a
+    page-table walk never crosses ranks; page tables and lens replicate
+    (host-authored scheduler state every rank reads)."""
+    axes = {"k": ("layers", None, None, "cache_heads", None),
+            "v": ("layers", None, None, "cache_heads", None),
+            "page_table": None, "lens": None,
+            "k_scale": None, "v_scale": None}
+    if cache.k_scale is not None:
+        # kv8 scale pools are 4-D (heads innermost); kv4's keep a block
+        # axis after the heads
+        sc = ("layers", None, None, "cache_heads")
+        if cache.k_scale.ndim == 5:
+            sc = sc + (None,)
+        axes["k_scale"] = axes["v_scale"] = sc
+    return axes
+
+
 class PageIntegrityError(RuntimeError):
     """Page-pool bookkeeping corruption: a page double-freed, freed while
     another slot still references it, or a device page-table row that
@@ -351,11 +370,23 @@ class PageAllocator:
 class LinearCache:
     """The contiguous ``max_batch x max_len`` slot table behind the Engine.
     Slots share nothing, so the prefix-sharing calls of the store API are
-    no-ops here."""
+    no-ops here.  On a mesh whose "data" axis splits the batch, a rank's
+    cache holds only its slots (:meth:`hold_rows`); the writes to other
+    slots are other ranks'."""
 
     def __init__(self, model, max_batch: int, max_len: int):
         self.cache = model.init_cache(max_batch, max_len)
         self.max_len = max_len
+        self._rows = range(max_batch)
+
+    def hold_rows(self, cache: dict, rows: slice) -> None:
+        """Keep ``cache``, the local cache of slots ``rows`` only."""
+        self.cache = cache
+        self._rows = range(rows.start, rows.stop)
+
+    def _row(self, slot: int) -> Optional[int]:
+        """``slot``'s row of the local cache, None for another rank's."""
+        return slot - self._rows.start if slot in self._rows else None
 
     @property
     def capacity(self) -> int:
@@ -400,6 +431,9 @@ class LinearCache:
         holds the prompt's last ``window`` positions in their slots) as a
         prefix along it, the recurrent states (``ssm``, ``rnn``, ``conv``)
         whole."""
+        slot = self._row(slot)
+        if slot is None:
+            return
         for key, src in seq_cache.items():
             if key == "len":
                 continue
@@ -413,7 +447,9 @@ class LinearCache:
 
     def free(self, slot: int) -> int:
         """Retire a slot: stale K/V stay (masked by len); len resets."""
-        self.cache["len"][slot] = 0
+        slot = self._row(slot)
+        if slot is not None:
+            self.cache["len"][slot] = 0
         return 0
 
     def scrub(self, slot: int) -> None:
@@ -422,6 +458,9 @@ class LinearCache:
         enter ``p @ v`` with weight 0.0, and ``0.0 * NaN = NaN``: a
         non-finite value left in a retired slot would poison its next
         tenant."""
+        slot = self._row(slot)
+        if slot is None:
+            return
         for key in SEQ_KEYS:
             if key in self.cache:
                 self.cache[key][:, slot] = 0

@@ -139,6 +139,9 @@ class QuantizedModel(ServingTrunk):
     mode: str = "auto"
     device: str = "cuda"
     block_kv: Optional[int] = None
+    # one rank's view of a serving mesh (the Engine sets it)
+    tp: Optional[object] = dataclasses.field(default=None, compare=False,
+                                             repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
@@ -171,6 +174,68 @@ class QuantizedModel(ServingTrunk):
         (kq, k_s), (vq, v_s) = (_kv_quantize(t, self.qcfg.kv_bits)
                                 for t in (k, v))
         return kq, vq, k_s, v_s
+
+    # ---- sharding ------------------------------------------------------
+    def param_logical_axes(self) -> dict:
+        """Logical axes of the packed tree, the reference's table: one
+        names tuple for a QTensor's codes, scale and zero points, whose K
+        stays whole (weights resident, no gather a step); q/k/v and the
+        MLP's up-projections split their outputs, wo and w_down keep K
+        ("fsdp_embed", None when serving)."""
+        cfg = self.cfg
+        L = ("layers",)
+
+        def norm_ax():
+            ax = {"scale": L + (None,)}
+            if cfg.norm == "layernorm":
+                ax["bias"] = L + (None,)
+            return ax
+
+        def q_ax(out_name):
+            names = L + (None, out_name)
+            return {"packed": names, "scale": names, "zp": names}
+
+        lx = {"ln_attn": norm_ax(), "ln_mlp": norm_ax(),
+              "wq": q_ax("heads"), "wk": q_ax("kv_heads"),
+              "wv": q_ax("kv_heads"), "wo": q_ax("fsdp_embed")}
+        if cfg.qkv_bias:
+            lx.update(bq=L + ("heads",), bk=L + ("kv_heads",),
+                      bv=L + ("kv_heads",))
+        if cfg.num_experts:
+            names = L + ("expert", None, None)
+            qe = {"packed": names, "scale": names, "zp": names}
+            lx["moe"] = {"router": L + (None, None), "w_up": qe,
+                         "w_down": qe}
+            if cfg.act in ("swiglu", "geglu"):
+                lx["moe"]["w_gate"] = qe
+        else:
+            lx["mlp"] = {"w_gate": q_ax("mlp"), "w_up": q_ax("mlp"),
+                         "w_down": q_ax("fsdp_embed")}
+            if cfg.act not in ("swiglu", "geglu"):
+                lx["mlp"].pop("w_gate")
+        axes = {"embed": ("vocab", None), "layers": lx,
+                "ln_f": {"scale": (None,)}}
+        if cfg.norm == "layernorm":
+            axes["ln_f"]["bias"] = (None,)
+        if not cfg.tie_embeddings:
+            axes["head"] = (None, "vocab")
+        return axes
+
+    def cache_logical_axes(self, cache) -> dict:
+        """The float model's cache axes, with kv8 / kv4 scales split over
+        their KV heads like the codes (kv4's block axis stays whole)."""
+        from repro_torch.models.model import Model
+        from repro_torch.serve.kv_cache import (PagedKVCache,
+                                                paged_cache_logical_axes)
+        if isinstance(cache, PagedKVCache):
+            return paged_cache_logical_axes(cache)
+        axes = Model.cache_logical_axes(self, cache)
+        if "k_scale" in cache:
+            sc = ("layers", "batch", None, "cache_heads")
+            if cache["k_scale"].ndim == 5:
+                sc = sc + (None,)
+            axes["k_scale"] = axes["v_scale"] = sc
+        return axes
 
     def _moe_apply(self, mp: dict, h: torch.Tensor) -> torch.Tensor:
         """The MoE half on packed experts: each expert leaf dequantized

@@ -1,0 +1,103 @@
+"""One rank's view of a (data, model) serving mesh: its coordinates, the
+two axes' process groups and the collectives the serving trunk calls.
+
+The trunk runs on plain local tensors (``sharding.shard_tree`` cut them
+once) and meets the other ranks only here:
+
+* ``gather(x, "model")`` where a column-parallel output meets a consumer
+  that needs all of it: the attention output before a whole-K ``wo``,
+  ``act(gate) * up`` before a whole-K ``w_down``, the logits after a
+  vocabulary-split head, and q / k / v when attention cannot split by
+  heads;
+* ``sum(x, "model")`` after a row-parallel product (the float model's
+  ``wo`` / ``w_down``) and after the embedding's masked lookup in this
+  rank's vocabulary slice (x + 0 + ... + 0: exact);
+* ``gather(x, "data")`` of a step's newly written K/V, so every rank's
+  replicated page pool stays whole, and of the hidden states before the
+  head, so the head runs every row as the unsharded step does.
+
+Heads split over "model" only where "model" divides the KV heads (and so
+the query heads), the reference's rule; elsewhere attention runs whole on
+every rank.  A step's rows split over "data" where "data" divides them;
+whole-prompt admission, whose group size varies, runs on every data rank.
+
+A gloo group's collective on a CUDA tensor is staged through the host: the
+copy to the host waits for this rank's own stream, so the collective sees
+the rank's finished kernels.  NCCL takes CUDA tensors as they are.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import axis_sizes, mesh_coordinate
+
+
+class TensorParallel:
+    """``heads``: the cache's KV heads are split over "model" (resolution
+    splits them where "model" divides them, and so the query heads: the
+    reference's ``_tp_mesh`` rule).  ``batch``: the rules map "batch" onto
+    "data", so steps split their rows where "data" divides them."""
+
+    def __init__(self, mesh, cfg, *, heads: bool, batch: bool = True):
+        sizes = axis_sizes(mesh)
+        coord = mesh_coordinate(mesh)
+        self.m, self.d = sizes.get("model", 1), sizes.get("data", 1)
+        self.mi, self.di = coord.get("model", 0), coord.get("data", 0)
+        self.groups = {a: mesh.get_group(a) for a in ("model", "data")
+                       if sizes.get(a, 1) > 1}
+        if heads and (cfg.num_heads % self.m or cfg.num_kv_heads % self.m):
+            raise ValueError(f"heads split over model={self.m} needs it to "
+                             f"divide {cfg.num_heads} query and "
+                             f"{cfg.num_kv_heads} KV heads")
+        self.heads = heads and self.m > 1
+        self.batch = batch and self.d > 1
+
+    @property
+    def size(self) -> int:
+        return self.m * self.d
+
+    # ---- shapes ----------------------------------------------------------
+    def rows(self, b: int) -> Optional[slice]:
+        """This rank's rows of a ``b``-row step, or None (whole) where
+        "data" does not split it."""
+        if not self.batch or b % self.d:
+            return None
+        n = b // self.d
+        return slice(self.di * n, (self.di + 1) * n)
+
+    def cols(self, t: torch.Tensor, width: int) -> torch.Tensor:
+        """``t``'s last dim cut to this rank's ``width`` columns when it is
+        wider (a replicated bias beside a column-split weight)."""
+        if t.shape[-1] == width:
+            return t
+        return t[..., self.mi * width:(self.mi + 1) * width]
+
+    # ---- collectives -----------------------------------------------------
+    def _staged(self, x: torch.Tensor, group) -> torch.Tensor:
+        if x.is_cuda and dist.get_backend(group) == "gloo":
+            return x.detach().cpu()
+        return x.detach().contiguous()
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int = -1
+               ) -> torch.Tensor:
+        """The pieces of ``x`` from every rank of ``axis``, concatenated
+        along ``dim`` in rank order; ``x`` when the axis has one rank."""
+        group = self.groups.get(axis)
+        if group is None:
+            return x
+        xs = self._staged(x, group)
+        parts = [torch.empty_like(xs) for _ in range(group.size())]
+        dist.all_gather(parts, xs, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    def sum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The elementwise sum of ``x`` over the ranks of ``axis``."""
+        group = self.groups.get(axis)
+        if group is None:
+            return x
+        xs = self._staged(x, group).clone()
+        dist.all_reduce(xs, op=dist.ReduceOp.SUM, group=group)
+        return xs.to(x.device)

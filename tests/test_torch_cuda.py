@@ -1268,3 +1268,117 @@ def test_recurrent_and_vlm_models_on_the_card_match_the_cpu(dev, arch):
         return torch.cat(seq, 1).cpu()
 
     assert _err(run(dev), run("cpu")) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# mesh slices: a rank's kernel call on its slice is the same bits as the
+# same part of the whole call
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["w4a8_matmul", "dequant_matmul"])
+def test_matmul_column_slices_equal_the_full_product(dev, name):
+    """Contiguous column slices of a packed weight (codes, scales and zero
+    points cut alike; N / 2 = 100 and N / 4 = 50 are ragged) give the same
+    columns as the full product, in the decode and tile bodies."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k, n, g = 256, 200, 32
+    codes = torch.randint(0, 16, (k, n), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    qt = QTensor(pack(codes, 4),
+                 torch.rand((k // g, n), generator=gen, device=dev) * 0.01
+                 + 1e-3,
+                 torch.randint(0, 16, (k // g, n), generator=gen,
+                               device=dev).to(torch.float32), 4, g)
+    for m in (1, 4, 70):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        call = ((lambda w: ops.quant_matmul(x, w, a_bits=4))
+                if name == "w4a8_matmul" else
+                (lambda w: ops.dequant_matmul(x, w)))
+        whole = call(qt)
+        for parts in (2, 4):
+            step = n // parts
+            for r in range(parts):
+                cols = slice(r * step, (r + 1) * step)
+                part = QTensor(*(t[:, cols].contiguous() for t in (
+                    qt.packed, qt.scale, qt.zp)), 4, g)
+                assert torch.equal(call(part), whole[:, cols]), (m, parts, r)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_attention_head_slices_equal_the_full_call(dev, kv_bits):
+    """The four attention kernels on contiguous head slices of q and of
+    the cache (G = 5, 4 KV heads cut to 2 and 1) give the same heads as
+    the full call, linear and paged."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, s, ps, hkv, grp, d = 3, 48, 8, 4, 5, 64
+    hq = hkv * grp
+    pt = torch.randperm(b * (s // ps), generator=torch.Generator().manual_seed(
+        3)).to(torch.int32).reshape(b, s // ps).to(dev)
+    dk = d // 2 if kv_bits == 4 else d
+    pools = [torch.randint(-128, 128, (b * s // ps, ps, hkv, dk),
+                           generator=gen, device=dev, dtype=torch.int8)
+             for _ in range(2)]
+    sshape = (b * s // ps, ps, hkv) + ((d // 32,) if kv_bits == 4 else ())
+    pools += [(torch.rand(sshape, generator=gen, device=dev) * 0.05 + 0.01
+               ).to(torch.bfloat16 if kv_bits == 4 else torch.float32)
+              for _ in range(2)]
+    idx = pt.long()
+    lin = [t[idx].reshape(b, s, *t.shape[2:]).contiguous() for t in pools]
+    cur = torch.tensor([30, 1, 48], dtype=torch.int32, device=dev)
+    off = torch.tensor([0, 17, 40], dtype=torch.int32, device=dev)
+    cl = torch.tensor([12, 8, 0], dtype=torch.int32, device=dev)
+    qd = torch.randn((b, 1, hq, d), generator=gen, device=dev)
+    qp = torch.randn((b, 12, hq, d), generator=gen, device=dev)
+    calls = [(qd, lin, lambda q, kv: ops.flash_decode(q, kv, cur)),
+             (qd, pools, lambda q, kv: ops.flash_decode(q, kv, cur,
+                                                        page_table=pt)),
+             (qp, lin, lambda q, kv: ops.flash_prefill(q, kv, off, cl)),
+             (qp, pools, lambda q, kv: ops.flash_prefill(q, kv, off, cl,
+                                                         page_table=pt))]
+    for q, kv, call in calls:
+        whole = call(q, kv)
+        for parts in (2, 4):
+            hs, qs = hkv // parts, hq // parts
+            for r in range(parts):
+                got = call(q[:, :, r * qs:(r + 1) * qs].contiguous(),
+                           [t[:, :, r * hs:(r + 1) * hs].contiguous()
+                            for t in kv])
+                assert torch.equal(got, whole[:, :, r * qs:(r + 1) * qs])
+
+
+def test_mesh_1x1_nccl_engine_equals_no_mesh(dev):
+    """``Engine(mesh=make_serving_mesh(1, 1))`` in one process: a world of
+    one over NCCL, the llama-micro W4A4 kv8 paged streams of the
+    unsharded engine token for token."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import random_packed_lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.quantized import QuantizedModel
+    cfg = get_config("llama-micro")
+    q = QuantConfig(w_bits=4, a_bits=4, group_size=32, kv_bits=8)
+    params = random_packed_lm(cfg, q, 0, dev)
+    model = QuantizedModel(cfg, q, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n) for n in (13, 9, 26, 5)]
+    scfg = ServeConfig(max_batch=2, max_len=48, max_new=8, page_size=8,
+                       paged=True, num_pages=6, prefill_chunk=8)
+
+    def run(mesh):
+        eng = Engine(model, params, scfg, mesh=mesh)
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run(max_steps=600)
+        return [r.out_tokens for r in reqs], eng.memory_report()
+
+    base, base_mem = run(None)
+    mesh = make_serving_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        got, mem = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got == base
+    assert mem == base_mem

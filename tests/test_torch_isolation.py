@@ -95,3 +95,8 @@ def test_cuda_requests_without_cuda_raise(monkeypatch):
         QuantizedModel(get_config("llama-micro"), QuantConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "llama-micro"])
+    from repro_torch.launch.mesh import make_serving_mesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_serving_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "llama-micro", "--mesh-model", "2"])
