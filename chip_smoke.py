@@ -109,8 +109,9 @@ failure raises (exit code != 0).
    torch.profiler must run one kernel (int8_matmul) or two (w8a8_matmul:
    the pre-pass and the product) and return the plain version's bits; a
    trace whose device records the profiler lost (its CPU side holds the
-   launch) is taken again and counted in the summary's
-   ``profiler_retries``.
+   launch) is taken again, up to 5 times, and counted in the summary's
+   ``profiler_retries``.  Phase 7 runs while no other process of the
+   script shares the card.
 8. calibrate: AffineQuant calibration of llama-7b-width blocks on the
    card (depth cut to 2 layers; 32 x 512 Markov tokens, batch 8, 3 epochs,
    alpha 0.1) through ``repro_torch.launch.calibrate``, then serving of the
@@ -236,12 +237,14 @@ failure raises (exit code != 0).
    width and depth (48 layers, 128 experts top-8), seed-0 weights packed
    layer by layer at startup (336 quantize_pack launches, one a linear,
    a layer's 128 experts of a projection in one), phase 3's requests over
-   the linear cache, pages of 64 (streams equal: whole-prompt admission
-   prefills the same rows in both layouts, so the per-call expert
-   capacities match), chunks of 64 into a 10-page pool (must preempt and
-   complete; capacity competes per chunk, so its streams are logged, not
-   held) and kv4 paged, the per-block check on the linear and kv4 runs;
-   tok/s and the decode step beside the
+   the linear cache with the per-block check; then phase 17 (c) on this
+   tree; then, the tree cut to 8 layers (MOE_LATER_LAYERS, full width: the
+   script's time), pages of 64 (streams equal 17c's unsharded linear
+   streams at that depth: whole-prompt admission prefills the same rows in
+   both layouts, so the per-call expert capacities match), chunks of 64
+   into a 10-page pool (must preempt and complete; capacity competes per
+   chunk, so its streams are logged, not held) and kv4 paged with the
+   per-block check; tok/s and the decode step beside the
    packed bytes' stream time, weight / KV bytes and peak memory; (b) the
    float qwen3-moe at published width, depth cut to 8 (22.43 GB), linear
    == paged, the per-block check of the kv16 kernels; (c) AffineQuant
@@ -317,10 +320,32 @@ failure raises (exit code != 0).
    depth (which must preempt), each rank must hold less weight and KV
    bytes and launch the kernels (its launches by name and its decode step
    in the log line, beside the card's name and power limit); a rank that
-   fails fails the script.
+   fails fails the script.  (c), run inside phase 14 on its tree cut to 8
+   layers (full width, saved once): qwen3-moe-30b-a3b W4A4 g128 kv8 through
+   ``launch/serve``'s serving run with ``--load-packed --mesh-model 2
+   --share-cards`` on two ranks sharing the card, each holding 64 of every
+   layer's 128 experts (only those dequantized), phase 14's requests over
+   the linear cache: a single torch.bmm over 64 experts is not the same
+   bits as over 128 at a decode step's capacity (``launch/row_probe
+   --batches``), but the MoE multiplies experts in blocks of 32 (E / 4),
+   so every
+   rank's streams and statuses must equal one device's, its teacher-forced
+   logits lie within 1e-4 of them and no routed row's top-k differs; a
+   rank's expert count, weight bytes and one layer's expert dequantization
+   (all 128 experts against a rank's 64) logged.  (d) mamba2-1.3b (8
+   layers) and recurrentgemma-2b (6) float at full width through the same
+   serving run with ``--fp`` on (1, 2): a rank holds half the SSD heads /
+   rnn channels and their states, teacher-forced logits within 1e-4 of
+   one device's, greedy agreement counted; (e) paligemma-3b float (6
+   layers, full width) on (1, 2) through ``Engine(mesh=...)``: the prefill
+   of 256 prefix slots and 128 text tokens and 31 teacher-forced decode
+   steps within 1e-4 of one device's.  (c)'s ranks run beside phase 14
+   (a)'s later runs and (d)-(e)'s beside phase 11, so those
+   timings share the card.  Depths cut for the script's time (PERF.md
+   section 4).
 18. summary.  Every kernel's ``launches`` is the count of the runs above
    that drive the main path (the startup packing of phases 3, 4, 12, 14
-   and 16, phases 3-6, 9, 11, 12, both parts of phase 17 (each rank's
+   and 16, phases 3-6, 9, 11, 12, phase 17's serving runs (each rank's
    launches counted in its process), the serving runs of phase 8, phase 10's
    serving and RTN packing, phase 13's two serving runs, phase 14's
    serving runs, phase 15's Engine runs and paligemma decode, and phase
@@ -333,6 +358,9 @@ failure raises (exit code != 0).
    Every phase logs its wall time.
 
 Phases 3, 5, 6, 7, 9 and 17 share one packed llama-7b tree.
+Every process the script starts is stopped when it ends, whether it
+passes, fails or is sent SIGTERM; the script's own Python processes (mesh
+ranks, side runs) also die with it if it is killed.
 The last lines are one JSON object of the kernels (with phase 7's
 ``profiler_retries``), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -474,6 +502,47 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# every process the script starts (mesh ranks, side runs, the training
+# command); stop_children() kills what is left of them however main() ends
+CHILDREN: list = []
+
+
+def start_child(cmd: list, **kw) -> subprocess.Popen:
+    proc = subprocess.Popen(cmd, **kw)
+    CHILDREN.append(proc)
+    return proc
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def child_env() -> dict:
+    """The environment of a process the script starts: the checkout's
+    sources on the path, and this process's id for die_with_parent()."""
+    import os
+    return dict(os.environ, PYTHONPATH=str(SRC),
+                CHIP_SMOKE_PARENT=str(os.getpid()))
+
+
+def die_with_parent() -> None:
+    """In a process the script started: be killed when the main process
+    ends, even by SIGKILL (Linux's PR_SET_PDEATHSIG), and end now if it
+    has already ended.  Nothing when run by hand (no CHIP_SMOKE_PARENT)."""
+    import ctypes
+    import os
+    import signal
+    parent = os.environ.get("CHIP_SMOKE_PARENT")
+    if parent is None:
+        return
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)      # PR_SET_PDEATHSIG
+    if os.getppid() != int(parent):
+        os._exit(1)
+
+
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
@@ -586,6 +655,8 @@ def main() -> None:
                                   streams))
     # ---- 17. mesh-native serving, on the same tree ------------------------
     phases.append(mesh_phase(torch, params, streams))
+    # phase 7 traces its calls under torch.profiler before any other
+    # process shares the card
     repacked, retries = repack(torch, params, prompts)
     # phase 7's quantize_pack calls are its repack comparison, not a run of
     # the main path; only its int8 pair counts
@@ -593,9 +664,12 @@ def main() -> None:
     phases.append(repacked)
     del params
     torch.cuda.empty_cache()
+    # (d)-(e): their ranks run beside phase 11
+    families = MeshFamilies(torch, card_name(torch))
 
     # ---- 11. the float llama-7b beside phase 3's W4A4 tree ----------------
     phases.append(float_llama_phase(torch, streams))
+    phases.append(families.finish(torch))
 
     # ---- 8. calibrate llama-7b-width blocks and serve what they pack -------
     ppl = {}
@@ -1812,11 +1886,11 @@ def _recording(cls):
                 super().__post_init__()
                 object.__setattr__(self, "routes", [])
 
-            def _moe_apply(self, mp, h):
+            def _moe_apply(self, mp, h, split=False):
                 ids = moe.route(mp["router"], h.reshape(-1, h.shape[-1]),
                                 self.cfg.top_k)[2]
                 self.routes.append(torch.sort(ids, dim=-1)[0])
-                return super()._moe_apply(mp, h)
+                return super()._moe_apply(mp, h, split)
 
         _RECORDING[cls] = Recording
     return _RECORDING[cls]
@@ -2359,14 +2433,16 @@ def mesh_phase(torch, params, streams) -> dict:
     preempt): each rank's streams, statuses and preemptions equal the
     unsharded engine's on the same tree and depth, and each rank holds
     less weight and KV bytes.  Returns the launches of both parts' serving
-    runs (each rank's counted in its process)."""
+    runs (each rank's counted in its process).  (c) runs inside phase 14
+    (:class:`MeshMoe`), (d)-(e) beside phase 11
+    (:class:`MeshFamilies`)."""
     t_phase = time.perf_counter()
     card = card_name(torch)
     counts = zero_counts()
     mesh_single(torch, params, streams, counts, card)
     mesh_two_ranks(torch, params, counts, card)
-    log(f"[mesh] phase 17 wall time {time.perf_counter() - t_phase:.1f} s "
-        f"({card}); launches {counts}")
+    log(f"[mesh] phase 17 (a)-(b) wall time "
+        f"{time.perf_counter() - t_phase:.1f} s ({card}); launches {counts}")
     return counts
 
 
@@ -2475,7 +2551,409 @@ def mesh_two_ranks(torch, params, counts, card) -> None:
         f"s ({card})")
 
 
-def device_kernels(torch, fn, want, tries: int = 3) -> tuple[list, int]:
+MESH_MOE_LAYERS = 8      # 17c's depth, cut from 48 (full width)
+MESH_REC = {"mamba2-1.3b": 8, "recurrentgemma-2b": 6}   # 17d, from 48 / 26
+MESH_VLM_LAYERS = 6      # 17e's depth, cut from 18
+MESH_TOL = 1e-4          # teacher-forced logits, of the largest unsharded
+MESH_FLAGS = ["--mesh-data", "1", "--mesh-model", str(MESH_MODEL),
+              "--share-cards"]
+
+
+class MeshRanks:
+    """``jobs`` on a (1, MESH_MODEL) mesh of ranks sharing the card over
+    gloo (:func:`mesh_rank_main`, one process a rank), started at once and
+    run beside the main process; :meth:`finish` waits and returns each
+    rank's results, rank 0's teacher-forced logits (and an MoE's routes)
+    loaded from ``<tag>.pt``.  A rank that fails fails the script."""
+
+    def __init__(self, jobs: list, tmp: Path):
+        from repro_torch.launch.mesh import free_port
+        self.tmp, self.t0 = tmp, time.perf_counter()
+        spec = self.tmp / "mesh-jobs.json"
+        spec.write_text(json.dumps({"jobs": jobs, "out": str(self.tmp),
+                                    "device": MESH_DEVICE,
+                                    "prefix": [VLM_TEXT, REC_NEW]}))
+        port = free_port()
+        self.procs = [start_child(
+            [sys.executable, "-c", f"import chip_smoke; "
+             f"chip_smoke.mesh_rank_main({r}, {MESH_MODEL}, {port}, "
+             f"{str(spec)!r})"],
+            cwd=ROOT, env=child_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(MESH_MODEL)]
+
+    def finish(self, torch) -> tuple:
+        """(each rank's results, {tag: rank 0's saved tensors})."""
+        import shutil
+        outs = []
+        try:
+            for proc in self.procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in self.procs:
+                proc.kill()
+        self.seconds = time.perf_counter() - self.t0
+        try:
+            for r, (proc, out) in enumerate(zip(self.procs, outs)):
+                if proc.returncode != 0:
+                    for line in out.splitlines()[-40:]:
+                        log(f"[mesh rank {r}] {line}")
+                    raise RuntimeError(f"mesh rank {r} failed (exit "
+                                       f"{proc.returncode})")
+            ranks = [json.loads((self.tmp / f"mesh-rank{r}.json").read_text())
+                     for r in range(MESH_MODEL)]
+            saved = {tag: torch.load(self.tmp / f"{tag}.pt")
+                     for tag in ranks[0]}
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        return ranks, saved
+
+
+def _mesh_tmp() -> Path:
+    import tempfile
+    return Path(tempfile.mkdtemp(prefix="mesh-"))
+
+
+def prefix_forced(torch, model, params, text: int, new: int):
+    """17e: the prefix prefill of 2 x num_prefix seeded prefix embeddings
+    and 2 x ``text`` seeded tokens, then ``new - 1`` teacher-forced decode
+    steps on seeded tokens; their logits (2, new, vocab)."""
+    import numpy as np
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prefix = torch.from_numpy((0.02 * rng.standard_normal(
+        (2, cfg.num_prefix, cfg.d_model))).astype(np.float32)).to(
+            model.device)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, text)
+                                           ).astype(np.int32))
+    gen = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, new)
+                                        ).astype(np.int32))
+    with torch.no_grad():
+        lg, cache = model.prefill(params, {"tokens": tokens,
+                                           "prefix_embeds": prefix},
+                                  cfg.num_prefix + text + new)
+        seq = [lg]
+        for i in range(new - 1):
+            lg, cache = model.decode_step(params, gen[:, i:i + 1], cache)
+            seq.append(lg)
+    return torch.cat(seq, 1)
+
+
+def routed_forced(torch, model, params, prompts, streams, max_len) -> dict:
+    """Teacher-forced logits of ``model`` on ``prompts`` and ``streams``
+    (on the CPU) and, for an MoE, the sorted expert ids of every routed
+    token row of its MoE calls (``routes``, (rows, top_k))."""
+    import dataclasses
+    from repro_torch.launch.serve import teacher_forced
+    gen = torch.as_tensor(streams, dtype=torch.int32)
+    p = torch.as_tensor([list(x) for x in prompts], dtype=torch.int32)
+    if model.cfg.num_experts:
+        fields = {f.name: getattr(model, f.name)
+                  for f in dataclasses.fields(model)}
+        model = _recording(type(model))(**fields)
+    out = {"logits": teacher_forced(model, params, p, gen, gen.shape[1] - 1,
+                                    max_len).cpu()}
+    if model.cfg.num_experts:
+        out["routes"] = torch.cat(model.routes).cpu()
+    return out
+
+
+def mesh_rank_main(rank: int, world: int, port: int, spec: str) -> None:
+    """One rank of :class:`MeshRanks`: join the gloo group, run each job on
+    the (1, world) mesh, write ``mesh-rank<r>.json`` (and rank 0's
+    tensors).  A "serve" job drives ``launch/serve``'s serving run on the
+    mesh (its launches counted), then teacher-forces the served model on
+    one device's streams; a "prefix" job builds ``Engine(mesh=...)`` and
+    runs the vlm's prefix prefill on the rank's shards."""
+    die_with_parent()
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_world, make_serving_mesh
+    from repro_torch.serve.engine import Engine
+    job_spec = json.loads(Path(spec).read_text())
+    out_dir, device = Path(job_spec["out"]), job_spec["device"]
+    if device == "cuda":
+        _lib.lib()
+    else:
+        torch.set_num_threads(1)
+    backend = init_world(rank, world, port, device)
+    results = {}
+    try:
+        mesh = make_serving_mesh(1, world, device=device)
+        for job in job_spec["jobs"]:
+            args = serve.build_parser().parse_args(job["argv"])
+            res = {"backend": backend, "rank": rank}
+            if job["kind"] == "serve":
+                _lib.reset_launches()
+                out = serve.serve(args, mesh=mesh)
+                eng = out["engine"]
+                res.update(launches=dict(_lib.LAUNCHES),
+                           streams=_streams(out),
+                           statuses=[r.status.name for r in out["requests"]],
+                           step_seconds=out["step_seconds"],
+                           memory=eng.memory_report())
+                if eng.model.cfg.num_experts:
+                    w = eng.params["layers"]["moe"]["w_up"]
+                    res["experts"] = int(getattr(w, "packed", w).shape[1])
+                saved = routed_forced(torch, eng.model, eng.params,
+                                      out["prompts"], job["streams"],
+                                      args.max_len)
+                del out
+            else:
+                _, _, params, model, _ = serve.build_model(args)
+                eng = Engine(model, params, serve.serve_config(args),
+                             mesh=mesh)
+                del params
+                saved = {"logits": prefix_forced(
+                    torch, eng.model, eng.params, *job_spec["prefix"]).cpu()}
+                res["memory"] = eng.memory_report()
+            if rank == 0:
+                torch.save(saved, out_dir / f"{job['tag']}.pt")
+            results[job["tag"]] = res
+            del eng, saved
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"mesh-rank{rank}.json").write_text(json.dumps(results))
+
+
+def _mesh_gate(tag, ranks, got, ref, want, base_bytes: int,
+               exact: bool = False) -> dict:
+    """17c-e's gates for ``tag``: every rank served the same streams (where
+    it served), all completed, and each rank holds fewer weight bytes than
+    one device; rank 0's teacher-forced logits (``got``) within MESH_TOL of
+    one device's (``ref``) at every row.  ``exact``: the streams equal one
+    device's and no routed row's top-k differs.  Returns the largest row
+    difference, the routing flips and the greedy agreement."""
+    import numpy as np
+    for r in ranks:
+        mem = r[tag]["memory"]
+        if not (mem["weight_bytes"] < base_bytes
+                and mem["device_count"] == MESH_MODEL):
+            raise RuntimeError(f"{tag}: rank {r['rank']} holds {mem}, not "
+                               f"less than one device's {base_bytes}")
+    lg, want_lg = got["logits"], ref["logits"]
+    g = {"rel": ((lg - want_lg).abs().max() / want_lg.abs().max()).item(),
+         "agree": None, "flips": None}
+    if "routes" in ref:
+        g["routed"] = ref["routes"].shape[0]
+        g["flips"] = int((got["routes"] != ref["routes"]).any(-1).sum())
+    if not (bool(lg.isfinite().all()) and g["rel"] <= MESH_TOL
+            and not (exact and g["flips"])):
+        raise RuntimeError(f"{tag}: teacher-forced logits on the mesh differ "
+                           f"from one device's by {g['rel']:.3e} (tol "
+                           f"{MESH_TOL:.0e}); routing flips {g['flips']}")
+    first = ranks[0][tag]
+    if "streams" in first:
+        if any(r[tag]["streams"] != first["streams"] for r in ranks):
+            raise RuntimeError(f"{tag}: the ranks served different streams")
+        if any(st != "COMPLETED" for st in first["statuses"]):
+            raise RuntimeError(f"{tag}: statuses {first['statuses']}")
+        if exact and first["streams"] != want:
+            raise RuntimeError(f"{tag}: the mesh's streams differ from one "
+                               f"device's")
+        g["agree"] = float(np.mean(np.array(first["streams"])
+                                   == np.array(want)))
+    return g
+
+
+class MeshFamilies:
+    """17d-e: mamba2-1.3b and recurrentgemma-2b float at full width (depths
+    MESH_REC) through ``launch/serve --fp``'s serving run on two ranks
+    sharing the card, held to one device's teacher-forced logits within
+    MESH_TOL, greedy agreement counted, a rank holding half the ssm heads
+    / rnn channels; paligemma-3b's prefix prefill (256 slots + VLM_TEXT
+    tokens and REC_NEW - 1 decode steps) at MESH_VLM_LAYERS within
+    MESH_TOL.  The constructor makes one device's references and starts
+    the ranks, which run beside the main process until :meth:`finish`
+    gates them and returns the launches of the serving runs (one device's
+    and each rank's)."""
+
+    def __init__(self, torch, card):
+        from repro_torch.launch import serve
+        from repro_torch.serve.engine import tree_bytes
+        self.card, self.t0 = card, time.perf_counter()
+        self.counts = zero_counts()
+        jobs, self.refs = [], {}
+        for arch, layers in MESH_REC.items():
+            argv = _with(SERVE_ARGS, arch=arch, layers=layers, fp=True)
+            out, c = _counted_serve(argv, None)
+            _add(self.counts, c)
+            want = _streams(out)
+            self.refs[arch] = (
+                routed_forced(torch, out["model"], out["params"],
+                              out["prompts"], want,
+                              out["engine"].cfg.max_len),
+                want, out["weight_bytes"], out["kv_bytes"],
+                statistics.median(out["step_seconds"][1:]))
+            jobs.append({"tag": arch, "kind": "serve",
+                         "argv": argv + MESH_FLAGS, "streams": want})
+            del out
+        argv = _with(SERVE_ARGS, arch=VLM_ARCH, layers=MESH_VLM_LAYERS,
+                     fp=True, max_batch=2)
+        cfg, _, params, model, _ = serve.build_model(
+            serve.build_parser().parse_args(argv))
+        self.refs[VLM_ARCH] = (
+            {"logits": prefix_forced(torch, model, params, VLM_TEXT,
+                                     REC_NEW).cpu()},
+            None, tree_bytes(params), 0, None)
+        self.prefix = cfg.num_prefix
+        del params, model
+        jobs.append({"tag": VLM_ARCH, "kind": "prefix",
+                     "argv": argv + MESH_FLAGS})
+        if MESH_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        self.ranks = MeshRanks(jobs, _mesh_tmp())
+        log(f"[mesh-d/e] one device's references in "
+            f"{time.perf_counter() - self.t0:.1f} s; two ranks started")
+
+    def finish(self, torch) -> dict:
+        card = self.card
+        ranks, saved = self.ranks.finish(torch)
+        for tag, (ref, want, wbytes, kvbytes, step) in self.refs.items():
+            g = _mesh_gate(tag, ranks, saved[tag], ref, want, wbytes)
+            r0 = ranks[0][tag]
+            mem = r0["memory"]
+            if tag == VLM_ARCH:
+                log(f"[mesh-e] {tag} x{MESH_VLM_LAYERS} (depth cut from 18, "
+                    f"full width) float on (1, {MESH_MODEL}) ({r0['backend']}"
+                    f", two ranks on the card): prefix {self.prefix} + text "
+                    f"{VLM_TEXT} prefilled and {REC_NEW - 1} decode steps, "
+                    f"teacher-forced logits within {g['rel']:.3e} of one "
+                    f"device's largest logit (tol {MESH_TOL:.0e}); a "
+                    f"rank's weight bytes "
+                    f"{mem['weight_bytes']} of {wbytes}; {card}")
+                continue
+            if not mem["kv_bytes"] < kvbytes:
+                raise RuntimeError(f"{tag}: a rank's state bytes "
+                                   f"{mem['kv_bytes']} are not below one "
+                                   f"device's {kvbytes}")
+            for rank in ranks:
+                _add(self.counts, {k: v for k, v in
+                                   rank[tag]["launches"].items()
+                                   if k in self.counts})
+            rs = r0["step_seconds"]
+            log(f"[mesh-d] {tag} x{MESH_REC[tag]} (depth cut, full width) "
+                f"float on (1, {MESH_MODEL}) ({r0['backend']}): "
+                f"teacher-forced logits on one device's streams within "
+                f"{g['rel']:.3e} of its largest logit (tol {MESH_TOL:.0e}); "
+                f"greedy agreement with one device "
+                f"{g['agree']:.4f}; a rank's weight bytes "
+                f"{mem['weight_bytes']} of {wbytes}, state / ring bytes "
+                f"{mem['kv_bytes']} of {kvbytes}; decode step median "
+                f"{statistics.median(rs[1:]) * 1e3:.2f} ms a rank (one "
+                f"device {step * 1e3:.2f}; the card shared with the main "
+                f"process); launches a rank "
+                f"{ {k: v for k, v in r0['launches'].items() if v} }; {card}")
+        log(f"[mesh-d/e] ranks {self.ranks.seconds:.1f} s beside the main "
+            f"process (start, init, shard, serve, teacher-force); parts (d) "
+            f"and (e) {time.perf_counter() - self.t0:.1f} s from the "
+            f"references to the gates ({card})")
+        return self.counts
+
+
+class MeshMoe:
+    """17c on phase 14's tree cut to MESH_MOE_LAYERS (full width): one
+    device's run on phase 14's requests over the linear cache, then
+    ``launch/serve --load-packed --mesh-model 2 --share-cards``'s serving
+    run on two ranks sharing the card (the tree saved once), each holding
+    half of every layer's experts, started by the constructor and run
+    beside the main process.  A single ``torch.bmm`` over 64 experts is
+    not the same bits as over 128 at a decode step's capacity
+    (``launch/row_probe --batches``), but the MoE multiplies its experts in
+    blocks of E / 4, so a rank makes one device's calls: its
+    streams and statuses must equal one device's, its teacher-forced
+    logits on them lie within MESH_TOL (and no routed row's top-k may
+    differ).  Logs a rank's expert count, bytes and one layer's expert
+    dequantization against one device's.  ``streams``: one device's
+    streams at this depth."""
+
+    def __init__(self, torch, params, card):
+        from repro_torch.models.init import layer
+        from repro_torch.train import checkpoints
+        self.card, self.t0 = card, time.perf_counter()
+        self.counts = zero_counts()
+        tree = dict(params, layers=_depth(params["layers"], MESH_MOE_LAYERS))
+        argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MESH_MOE_LAYERS)
+        out, c = _counted_serve(argv, tree)
+        _add(self.counts, c)
+        self.streams = _streams(out)
+        self.ref = routed_forced(torch, out["model"], tree, out["prompts"],
+                                 self.streams, out["engine"].cfg.max_len)
+        self.wbytes = out["weight_bytes"]
+        self.step = statistics.median(out["step_seconds"][1:])
+        del out
+        # one layer's expert dequantization: all E experts, and a rank's
+        leaves = [v for k, v in sorted(layer(tree["layers"], 0)["moe"]
+                                       .items()) if k != "router"]
+        self.e = leaves[0].packed.shape[0]
+        half = [qt[:self.e // MESH_MODEL] for qt in leaves]
+        if MESH_DEVICE == "cuda":
+            timer = Timer(torch)
+            self.deq = [timer(lambda ls=ls: [qt.dequantize() for qt in ls],
+                              reps=5) for ls in (leaves, half)]
+            del timer
+        else:
+            self.deq = [float("nan")] * 2
+        tmp = _mesh_tmp()
+        checkpoints.save(str(tmp / "tree"), 0, tree)
+        self.ranks = MeshRanks([{
+            "tag": "moe", "kind": "serve", "streams": self.streams,
+            "argv": argv + MESH_FLAGS + ["--load-packed", str(tmp / "tree")]
+        }], tmp)
+
+    def finish(self, torch) -> dict:
+        from repro_torch.models.moe import expert_block
+        card, e = self.card, self.e
+        ranks, saved = self.ranks.finish(torch)
+        g = _mesh_gate("moe", ranks, saved["moe"], self.ref, self.streams,
+                       self.wbytes, exact=True)
+        for rank in ranks:
+            r = rank["moe"]
+            if r["experts"] != e // MESH_MODEL:
+                raise RuntimeError(f"mesh-c: rank {r['rank']} holds "
+                                   f"{r['experts']} experts a layer, not "
+                                   f"{e // MESH_MODEL}")
+            require_launched(r["launches"], ("w4a8_matmul", "flash_prefill",
+                                             "flash_decode"),
+                             f"mesh-c rank {r['rank']}")
+            _add(self.counts, {k: v for k, v in r["launches"].items()
+                               if k in self.counts})
+            rs = r["step_seconds"]
+            log(f"[mesh-c] rank {r['rank']} of (1, {MESH_MODEL}) "
+                f"({r['backend']}, two ranks on the card): {r['experts']} of "
+                f"{e} experts a layer; weight bytes "
+                f"{r['memory']['weight_bytes']} of {self.wbytes} "
+                f"({r['memory']['weight_bytes'] / self.wbytes:.3f}), KV "
+                f"bytes {r['memory']['kv_bytes']}; decode step median "
+                f"{statistics.median(rs[1:]) * 1e3:.2f} ms over "
+                f"{len(rs) - 1} steps (one device {self.step * 1e3:.2f}; "
+                f"the card shared with the main process); statuses "
+                f"{r['statuses']}; launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }; {card}")
+        log(f"[mesh-c] {MOE_ARCH} x{MESH_MOE_LAYERS} (depth cut from 48, "
+            f"full width) w4a4 g128 kv8, phase 14's requests: every rank's "
+            f"streams and statuses equal one device's (experts multiplied "
+            f"in blocks of {expert_block(e)}); teacher-forced logits within "
+            f"{g['rel']:.3e} of one device's largest logit (tol "
+            f"{MESH_TOL:.0e}), routing flips {g['flips']} of {g['routed']} "
+            f"routed rows; one layer's expert "
+            f"dequantization to float32: all {e} experts {self.deq[0]:.3f} "
+            f"ms, a rank's {e // MESH_MODEL} {self.deq[1]:.3f} ms; ranks "
+            f"{self.ranks.seconds:.1f} s; part (c) "
+            f"{time.perf_counter() - self.t0:.1f} s from one device's run to "
+            f"the gates ({card})")
+        return self.counts
+
+
+def device_kernels(torch, fn, want, tries: int = 5) -> tuple[list, int]:
     """The names of the device kernels one call of ``fn`` runs
     (torch.profiler), and how many traces were taken again.  Every traced
     call must return ``want`` bit for bit.  The profiler at times loses a
@@ -3481,14 +3959,13 @@ class SideRun:
     there fails the script."""
 
     def __init__(self, fn: str, arg, tmp: Path):
-        import os
         self.fn, self.arg = fn, arg
         self.path = tmp / f"side-{fn}-{arg}.json"
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
+        self.proc = start_child(
             [sys.executable, "-c", f"import chip_smoke; chip_smoke.side_main("
              f"{fn!r}, {arg!r}, {str(self.path)!r})"],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+            cwd=ROOT, env=child_env(),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish(self) -> dict:
@@ -3504,6 +3981,7 @@ class SideRun:
 
 def side_main(fn: str, arg: str, path: str) -> None:
     """The body of a :class:`SideRun` process."""
+    die_with_parent()
     import torch
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3522,12 +4000,11 @@ class KillAndResume:
     :meth:`finish` joins it and gates it against the uninterrupted run."""
 
     def __init__(self, tmp: Path):
-        import os
         import threading
         self.tmp, self.resumed = tmp, tmp / "resumed"
         self.cmd = [sys.executable, "-m", "repro_torch.launch.train",
                     *TRAIN_ARGS, "--ckpt-dir", str(self.resumed)]
-        self.env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.env = child_env()
         self.lines, self.error, self.again = [], None, None
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
@@ -3538,8 +4015,8 @@ class KillAndResume:
         try:
             t0 = time.perf_counter()
             with open(self.tmp / "killed.log", "w") as f:
-                proc = subprocess.Popen(self.cmd, env=self.env, stdout=f,
-                                        stderr=f, cwd=ROOT)
+                proc = start_child(self.cmd, env=self.env, stdout=f,
+                                   stderr=f, cwd=ROOT)
                 try:
                     while not (self.resumed / f"step_{mid:08d}").is_dir():
                         if (proc.poll() is not None
@@ -3560,9 +4037,16 @@ class KillAndResume:
                 raise RuntimeError(f"train-a: the kill came at checkpoint "
                                    f"{at_kill}, not {mid}")
             t0 = time.perf_counter()
-            self.again = subprocess.run(self.cmd, env=self.env, cwd=ROOT,
-                                        capture_output=True, text=True,
-                                        timeout=600)
+            proc = start_child(self.cmd, env=self.env, cwd=ROOT,
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)
+            try:
+                out, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+                proc.wait()
+            self.again = subprocess.CompletedProcess(
+                self.cmd, proc.returncode, out, err)
             self.relaunch_s = time.perf_counter() - t0
         except Exception as e:           # re-raised by finish()
             self.error = e
@@ -3856,6 +4340,8 @@ MOE_TRAIN_STEPS = 10
 DBRX_ARCH = "dbrx-132b"
 DBRX_LAYERS = 4           # 40 packed layers would be ~71 GB
 MOE_POOL_PAGES = 10       # 4 x (128 + 32 + 1) positions need 12 pages of 64
+MOE_LATER_LAYERS = MESH_MOE_LAYERS   # (a)'s paged, pool and kv4 runs, cut from 48 to
+#                           keep the script's time with phase 17 (c)-(e)
 # routing flips the per-block check may count: a flip needs a token's
 # k-th and (k+1)-th router probabilities within an ulp-sized change of its
 # MoE input, so a wrong kernel (most rows far off) fails it, a few flips
@@ -3953,10 +4439,12 @@ def _packed_served(torch, tag, out, c, card) -> None:
 
 
 def moe_serve(torch, card) -> dict:
-    """(a) qwen3-moe-30b-a3b W4A4 g128 kv8 at published width and depth:
-    linear, pages of 64 (streams equal), chunks of 64 into a 10-page pool
-    (must preempt and complete) and kv4 paged, each with the per-block
-    check (routing flips counted)."""
+    """(a) qwen3-moe-30b-a3b W4A4 g128 kv8 at published width and depth
+    over the linear cache with the per-block check (routing flips
+    counted); phase 17 (c) on this tree; then, at MOE_LATER_LAYERS (the
+    tree cut, full width), pages of 64 (streams equal 17c's unsharded
+    linear streams at that depth), chunks of 64 into a 10-page pool (must
+    preempt and complete) and kv4 paged with the per-block check."""
     from repro_torch.launch.serve import agreement
     counts = zero_counts()
     argv = _with(SERVE_ARGS, arch=MOE_ARCH, layers=MOE_LAYERS)
@@ -3966,9 +4454,15 @@ def moe_serve(torch, card) -> dict:
     out, c = _counted_serve(argv, params)
     _packed_served(torch, "moe", out, c, card)
     _add(counts, c)
-    base = _streams(out)
     _gate_served(torch, "moe", out)
     del out
+    torch.cuda.empty_cache()
+    # phase 17 (c): this tree on a (1, 2) mesh, its ranks beside the later
+    # runs, whose base is one device's linear run at MESH_MOE_LAYERS
+    mesh = MeshMoe(torch, params, card)
+    base = mesh.streams
+    params = dict(params, layers=_depth(params["layers"], MOE_LATER_LAYERS))
+    argv = _with(argv, layers=MOE_LATER_LAYERS)
     torch.cuda.empty_cache()
     paged, c = _serve_paged_run(torch, "moe-paged", params, base=argv,
                                 page_size=64)
@@ -3976,9 +4470,9 @@ def moe_serve(torch, card) -> dict:
     if _streams(paged) != base:
         raise RuntimeError("moe-paged: the paged streams differ from the "
                            "linear ones")
-    log("[moe-paged] greedy streams equal the linear streams token for "
-        "token (whole-prompt admission prefills the same 4 x 128 rows in "
-        "both layouts, so the expert capacities match)")
+    log(f"[moe-paged] x{MOE_LATER_LAYERS}: greedy streams equal the linear "
+        f"streams token for token (whole-prompt admission prefills the same "
+        f"4 x 128 rows in both layouts, so the expert capacities match)")
     del paged
     pool, c = _serve_paged_run(torch, "moe-pool", params, base=argv,
                                page_size=64, prefill_chunk=64,
@@ -4001,6 +4495,7 @@ def moe_serve(torch, card) -> dict:
                      "moe-kv4")
     _gate_served(torch, "moe-kv4", kv4, page_size=64, chunk=64)
     del kv4, params
+    _add(counts, mesh.finish(torch))
     torch.cuda.empty_cache()
     return counts
 
@@ -4883,4 +5378,10 @@ def hubert_step_vs_cpu(torch, card) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import signal
+    # a SIGTERM ends main() by SystemExit, so that its children are stopped
+    signal.signal(signal.SIGTERM, lambda signum, _: sys.exit(128 + signum))
+    try:
+        main()
+    finally:
+        stop_children()

@@ -60,10 +60,17 @@ D x M ranks itself (``torch.multiprocessing``, one process each, joined over
 ``tcp://localhost``), each serving the same requests through
 ``Engine(mesh=...)`` on its shards (column-parallel weights over "model",
 the batch over "data"); rank 0 prints the report with each rank's resident
-weight and KV bytes.  On the card each rank needs a card of its own (NCCL)
-unless ``--share-cards`` puts several on one card (gloo, collectives staged
-through the host); ``--device cpu`` runs the ranks on gloo.  A 1 x 1 mesh
-serves in process, as without the flags.
+weight and KV bytes.  Every family serves so: the dense trunk, the MoE
+family packed and with ``--fp`` (``--arch qwen3-moe-30b-a3b`` /
+``dbrx-132b``: a rank holds its E / M experts), ``mamba2-1.3b`` and
+``recurrentgemma-2b`` with ``--fp`` (a rank holds its SSD heads / rnn
+channels and their states) and ``paligemma-3b`` packed or with ``--fp``.
+A float tree (``--ckpt``) and a packed one (``--load-packed``) load to
+the CPU on a mesh, so only each rank's shards reach the card.  On the
+card each rank needs a card of its own (NCCL) unless ``--share-cards``
+puts several on one card (gloo, collectives staged through the host);
+``--device cpu`` runs the ranks on gloo.  A 1 x 1 mesh serves in process,
+as without the flags.
 """
 from __future__ import annotations
 
@@ -125,11 +132,19 @@ def calibrated_lm(float_params: dict, cfg, qcfg: QuantConfig, args
     return packed, fake
 
 
+def on_mesh(args) -> bool:
+    return args.mesh_data * args.mesh_model > 1
+
+
 def float_lm(args, cfg, qcfg: QuantConfig, device) -> dict:
     """The float tree: ``--ckpt``, or the seeded init (the floats that
-    ``random_packed_lm`` packs, drawn in the same order)."""
+    ``random_packed_lm`` packs, drawn in the same order).  On a mesh a
+    checkpoint loads to the CPU: each rank's Engine moves only its shards
+    to the card (the seeded init is drawn on ``device``, whose generator
+    draws the floats an unsharded run serves)."""
     if args.ckpt:
-        return load_float_params(args.ckpt, cfg, qcfg, device)
+        return load_float_params(args.ckpt, cfg, qcfg,
+                                 "cpu" if on_mesh(args) else device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return init_lm(cfg, gen, device)
 
@@ -146,10 +161,9 @@ def load_params(args, cfg, qcfg: QuantConfig, device,
     if args.load_packed:
         # on a mesh the whole tree stays on the CPU: each rank's Engine
         # moves only its shards to the card
-        on_mesh = args.mesh_data * args.mesh_model > 1
         return checkpoints.load_tree(args.load_packed, cfg, qcfg,
-                                     device="cpu" if on_mesh else device
-                                     ), None
+                                     device="cpu" if on_mesh(args)
+                                     else device), None
     if args.fp:
         return float_params or float_lm(args, cfg, qcfg, device), None
     if not (args.ckpt or args.calibrate or float_params):
@@ -549,6 +563,8 @@ def _rank_main(rank: int, args: argparse.Namespace, world: int, port: int,
         summary = dict(rank_summary(out), rank=rank, backend=backend,
                        coordinate=list(mesh.get_coordinate()))
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(summary))
+        # no rank tears its connections down while another still serves
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -581,7 +597,7 @@ def serve_on_mesh(args: argparse.Namespace) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.mesh_data * args.mesh_model > 1:
+    if on_mesh(args):
         return serve_on_mesh(args)
     return run(args)
 

@@ -81,9 +81,13 @@ def rglru_step(p: dict, x: torch.Tensor, h_prev: torch.Tensor) -> tuple:
 def apply_rglru_block(p: dict, u: torch.Tensor, cfg,
                       rnn_state: Optional[torch.Tensor] = None,
                       conv_state: Optional[torch.Tensor] = None,
-                      decode: bool = False) -> tuple:
+                      decode: bool = False, out=None) -> tuple:
     """The temporal-mixing half of a recurrent block, residual included.
-    Returns (out, new_rnn_state, new_conv_state)."""
+    Returns (out, new_rnn_state, new_conv_state).  ``p`` may hold a rank's
+    block of the rnn channels (``w_rec`` / ``w_gate`` column-split, the
+    conv, gates and ``lam`` per channel, ``w_out`` row-split): then
+    ``out(h, w)`` is the row-split ``w_out`` product summed over the ranks
+    (default ``h @ w``)."""
     hs = layers.apply_norm(p["norm"], u, cfg.norm)
     gate = F.gelu(hs @ p["w_gate"], approximate="tanh")
     x, new_conv = causal_conv(hs @ p["w_rec"], p["conv_w"], p["conv_b"],
@@ -93,12 +97,16 @@ def apply_rglru_block(p: dict, u: torch.Tensor, cfg,
         y, new_state = rglru_step(p, x, rnn_state)
     else:
         y, new_state = rglru_scan(p, x, rnn_state)
-    return u + (y * gate) @ p["w_out"], new_state, new_conv
+    h = y * gate
+    return (u + (h @ p["w_out"] if out is None else out(h, p["w_out"])),
+            new_state, new_conv)
 
 
-def init_rglru_state(cfg, batch: int, device="cpu") -> tuple:
-    """(rnn (B, D_rnn) float32, conv (B, W - 1, D_rnn)) zeros."""
-    return (torch.zeros((batch, cfg.rnn_dim), dtype=torch.float32,
-                        device=device),
-            torch.zeros((batch, cfg.conv_width - 1, cfg.rnn_dim),
+def init_rglru_state(cfg, batch: int, device="cpu", parts: int = 1
+                     ) -> tuple:
+    """(rnn (B, D_rnn) float32, conv (B, W - 1, D_rnn)) zeros; a rank's
+    D_rnn / ``parts`` channels."""
+    d = cfg.rnn_dim // parts
+    return (torch.zeros((batch, d), dtype=torch.float32, device=device),
+            torch.zeros((batch, cfg.conv_width - 1, d),
                         dtype=getattr(torch, cfg.dtype), device=device))

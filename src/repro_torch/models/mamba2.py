@@ -140,15 +140,42 @@ def ssd_decode_step(x, dt, a, b, c, state) -> tuple:
     return y.to(x.dtype), new_state
 
 
+def _gate_norm(p: dict, y: torch.Tensor, width: int, reduce=None,
+               eps: float = 1e-6) -> torch.Tensor:
+    """``gate_norm``, an RMSNorm over the whole ``width``-channel row, of
+    ``y``, a rank's block of its channels: the block's float64 sum of
+    squares summed over the ranks by ``reduce``, then divided by
+    ``width`` (:func:`layers.apply_norm` when ``y`` is the whole row)."""
+    if reduce is None:
+        return layers.apply_norm(p, y, "rmsnorm", eps)
+    yf = y.to(torch.float32)
+    ss = reduce(torch.sum(yf * yf, dim=-1, keepdim=True,
+                          dtype=torch.float64))
+    mean = (ss / width).to(torch.float32)
+    return (yf * torch.rsqrt(mean + eps)
+            * p["scale"].to(torch.float32)).to(y.dtype)
+
+
 def apply_mamba2_block(p: dict, u: torch.Tensor, cfg,
                        ssm_state: Optional[torch.Tensor] = None,
                        conv_state: Optional[torch.Tensor] = None,
-                       decode: bool = False) -> tuple:
+                       decode: bool = False, reduce=None,
+                       out=None) -> tuple:
     """The whole block, residual included.  Returns (out, new_ssm_state,
-    new_conv_state)."""
+    new_conv_state).
+
+    The widths are read from the leaves, so ``p`` may be a rank's heads of
+    the block (:class:`repro_torch.sharding.Segments`: z, x, dt and the
+    per-head leaves by heads, B / C whole or by groups, the conv channels
+    to match): SSD is per head.  Then ``reduce`` sums over the ranks that
+    hold the other heads (``gate_norm``'s sum of squares), and ``out(h,
+    w)`` is the row-split ``out_proj`` product summed over them; both
+    default to the unsharded block."""
     bsz, t, _ = u.shape
-    h, hp = cfg.ssm_heads, cfg.ssm_headdim
-    g, n, d_in = cfg.ssm_ngroups, cfg.ssm_state, cfg.d_inner
+    hp, n = cfg.ssm_headdim, cfg.ssm_state
+    h = p["a_log"].shape[-1]
+    d_in = h * hp
+    g = (p["conv_b"].shape[-1] - d_in) // (2 * n)
     hs = layers.apply_norm(p["norm"], u, cfg.norm)
     proj = hs @ p["in_proj"]
     z = proj[..., :d_in]
@@ -176,14 +203,20 @@ def apply_mamba2_block(p: dict, u: torch.Tensor, cfg,
                                    bf16_intra=cfg.ssd_bf16_intra)
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * x
     y = y.reshape(bsz, t, d_in)
-    y = layers.apply_norm(p["gate_norm"], y, "rmsnorm") * F.silu(z)
-    return u + y @ p["out_proj"], new_state, new_conv
+    y = _gate_norm(p["gate_norm"], y, cfg.d_inner, reduce) * F.silu(z)
+    return (u + (y @ p["out_proj"] if out is None
+                 else out(y, p["out_proj"])), new_state, new_conv)
 
 
-def init_mamba2_state(cfg, batch: int, device="cpu") -> tuple:
-    """(ssm (B, H, P, N) float32, conv (B, W - 1, conv_dim)) zeros."""
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
-    return (torch.zeros((batch, cfg.ssm_heads, cfg.ssm_headdim,
+def init_mamba2_state(cfg, batch: int, device="cpu", parts: int = 1
+                      ) -> tuple:
+    """(ssm (B, H, P, N) float32, conv (B, W - 1, conv_dim)) zeros; a
+    rank's H / ``parts`` heads and their conv channels (B and C by groups
+    where ``parts`` divides G, else whole)."""
+    g = cfg.ssm_ngroups // parts if cfg.ssm_ngroups % parts == 0 \
+        else cfg.ssm_ngroups
+    conv_dim = cfg.d_inner // parts + 2 * g * cfg.ssm_state
+    return (torch.zeros((batch, cfg.ssm_heads // parts, cfg.ssm_headdim,
                          cfg.ssm_state), dtype=torch.float32, device=device),
             torch.zeros((batch, cfg.conv_width - 1, conv_dim),
                         dtype=getattr(torch, cfg.dtype), device=device))

@@ -15,6 +15,16 @@ slots.  They prefill at exact lengths only (state flows through pad
 positions), have no paged layout and no chunked prefill; audio (an
 encoder) has no decode path at all.  The refusals are the reference's.
 
+On a mesh (``tp``) a recurrent block runs on this rank's block of its
+width, the reference's "inner" / "rnn" over "model": mamba2's SSD heads
+(the leaves cut component by component, :meth:`Model.param_cuts`),
+``gate_norm``'s sum of squares and the row-split ``out_proj`` summed over
+"model"; griffin's rnn channels (``w_rec`` / ``w_gate`` column-split, the
+conv, gates and ``lam`` per channel) and the row-split ``w_out`` summed.
+The ``ssm`` / ``rnn`` / ``conv`` states hold the rank's width.  griffin's
+MQA attention blocks run whole on every rank.  A VLM's prefix prefill
+looks its text tokens up in the rank's vocabulary slice.
+
 The float linears are ``x @ w`` (``torch.matmul``), as the reference
 computes them outside any Pallas kernel; the cache is float (kv16) and
 attention reads it through the flash kernels on CUDA tensors at
@@ -33,6 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import griffin, layers, mamba2, transformer
 from repro_torch.models.init import griffin_is_attn, init_lm, layer
+from repro_torch.sharding import Segments
 
 ENCODER_ONLY = "encoder-only architecture has no decode path"
 RECURRENT = ("mamba2", "griffin")
@@ -136,10 +147,15 @@ class Model(transformer.ServingTrunk):
         VLM's prefix (its absolute positions are prefix + text)."""
         return self.supports_padded_prefill and self.cfg.family != "vlm"
 
+    def _rec_parts(self) -> int:
+        """How many ranks share the recurrent width (1 unsharded)."""
+        return self.tp.m if self.tp is not None and self.tp.rec else 1
+
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg = self.cfg
         if cfg.family == "mamba2":
-            ssm, conv = mamba2.init_mamba2_state(cfg, batch, self.device)
+            ssm, conv = mamba2.init_mamba2_state(cfg, batch, self.device,
+                                                 self._rec_parts())
             return {"ssm": ssm.repeat(cfg.num_layers, 1, 1, 1, 1),
                     "conv": conv.repeat(cfg.num_layers, 1, 1, 1),
                     "len": self._ints(None, 0, batch)}
@@ -148,9 +164,10 @@ class Model(transformer.ServingTrunk):
                          for i in range(cfg.num_layers))
             n_rec = cfg.num_layers - n_attn
             shape = (n_attn, batch, min(max_len, cfg.window),
-                     cfg.num_kv_heads, cfg.resolved_head_dim)
+                     self._heads()[1], cfg.resolved_head_dim)
             dt = getattr(torch, cfg.dtype)
-            rnn, conv = griffin.init_rglru_state(cfg, batch, self.device)
+            rnn, conv = griffin.init_rglru_state(cfg, batch, self.device,
+                                                 self._rec_parts())
             return {"k": torch.zeros(shape, dtype=dt, device=self.device),
                     "v": torch.zeros(shape, dtype=dt, device=self.device),
                     "rnn": rnn.repeat(n_rec, 1, 1),
@@ -196,8 +213,10 @@ class Model(transformer.ServingTrunk):
         if batch.get("lengths") is not None:
             raise ValueError("padded prefill with a VLM prefix: lengths "
                              "would be ambiguous (prefix + text)")
+        tokens = self._t(batch["tokens"])
         x, pos, p_len = transformer.embed_inputs(
-            params, cfg, self._t(batch["tokens"]), self._t(prefix))
+            params, cfg, tokens, self._t(prefix),
+            embed_fn=lambda t: self._embed(params, t, self._positions(t)))
         bsz, t_all = x.shape[0], x.shape[1]
         cache = self.init_cache(bsz, max(max_len, t_all))
         for i in range(cfg.num_layers):
@@ -208,14 +227,37 @@ class Model(transformer.ServingTrunk):
         cache["len"] = self._ints(None, t_all, bsz)
         return self._head(params, x[:, -1:]), cache
 
+    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        return torch.arange(tokens.shape[1], device=self.device)[None, :]
+
+    # ---- serving: the recurrent blocks on this rank's width -------------
+    def _sum(self):
+        """The sum over "model" where the recurrent width is split."""
+        tp = self.tp
+        return (lambda t: tp.sum(t, "model")) if tp is not None and tp.rec \
+            else None
+
+    def _mamba(self, p: dict, x, ssm=None, conv=None, decode=False):
+        return mamba2.apply_mamba2_block(
+            p, x, self.cfg, ssm, conv, decode, reduce=self._sum(),
+            out=lambda h, w: self._out(h, w, self.cfg.d_inner))
+
+    def _rec_block(self, rec: dict, x, rnn=None, conv=None, decode=False,
+                   rows=None) -> tuple:
+        """A whole griffin recurrent block (the RG-LRU half, then norm +
+        MLP) on this rank's width; returns (x, rnn state, conv state)."""
+        x, rnn_s, conv_s = griffin.apply_rglru_block(
+            rec["rglru"], x, self.cfg, rnn, conv, decode,
+            out=lambda h, w: self._out(h, w, self.cfg.rnn_dim))
+        return x + self._mlp(rec, x, rows), rnn_s, conv_s
+
     def _mamba_prefill(self, params: dict, tokens: torch.Tensor):
         cfg = self.cfg
         bsz, t = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = self._embed(params, tokens, self._positions(tokens))
         ssm, conv = [], []
         for i in range(cfg.num_layers):
-            x, s, c = mamba2.apply_mamba2_block(layer(params["layers"], i),
-                                                x, cfg)
+            x, s, c = self._mamba(layer(params["layers"], i), x)
             ssm.append(s)
             conv.append(c)
         cache = {"ssm": torch.stack(ssm), "conv": torch.stack(conv),
@@ -229,8 +271,8 @@ class Model(transformer.ServingTrunk):
         when T > w)."""
         cfg = self.cfg
         bsz, t = tokens.shape
-        pos = torch.arange(t, device=self.device)[None, :]
-        x = params["embed"][tokens.long()]
+        pos = self._positions(tokens)
+        x = self._embed(params, tokens, pos)
         cache = self.init_cache(bsz, max_len)
         w = cache["k"].shape[2]
         ai = ri = 0
@@ -246,8 +288,8 @@ class Model(transformer.ServingTrunk):
                                                     dims=1)
                 ai += 1
             else:
-                x, cache["rnn"][ri], cache["conv"][ri] = _rec_block(
-                    blk["kind_rec"], x, cfg)
+                x, cache["rnn"][ri], cache["conv"][ri] = self._rec_block(
+                    blk["kind_rec"], x)
                 ri += 1
         cache["len"] = self._ints(None, t, bsz)
         return self._head(params, x[:, -1:]), cache
@@ -271,29 +313,32 @@ class Model(transformer.ServingTrunk):
             raise ValueError(ENCODER_ONLY)
         if cfg.family not in RECURRENT:
             return super().decode_step(params, token, cache)
+        token = self._t(token)
+        rows = self._rows(token.shape[0])
+        if rows is not None:
+            token = token[rows]          # the cache holds only these rows
         cur_len = cache["len"]
-        x = params["embed"][self._t(token).long()]
+        x = self._embed(params, token, cur_len[:, None])
         if cfg.family == "mamba2":
             for i in range(cfg.num_layers):
-                x, cache["ssm"][i], cache["conv"][i] = \
-                    mamba2.apply_mamba2_block(
-                        layer(params["layers"], i), x, cfg, cache["ssm"][i],
-                        cache["conv"][i], decode=True)
+                x, cache["ssm"][i], cache["conv"][i] = self._mamba(
+                    layer(params["layers"], i), x, cache["ssm"][i],
+                    cache["conv"][i], decode=True)
         else:
             ai = ri = 0
             for blk in params["layers"]:
                 if "kind_attn" in blk:
                     x = self._block_decode(blk["kind_attn"], x,
                                            (cache["k"][ai], cache["v"][ai]),
-                                           cur_len)
+                                           cur_len, rows)
                     ai += 1
                 else:
-                    x, cache["rnn"][ri], cache["conv"][ri] = _rec_block(
-                        blk["kind_rec"], x, cfg, cache["rnn"][ri],
-                        cache["conv"][ri], decode=True)
+                    x, cache["rnn"][ri], cache["conv"][ri] = self._rec_block(
+                        blk["kind_rec"], x, cache["rnn"][ri],
+                        cache["conv"][ri], decode=True, rows=rows)
                     ri += 1
         cache["len"] = (cur_len + 1).to(torch.int32)
-        return self._head(params, x), cache
+        return self._head(params, self._gather_rows(x, rows)), cache
 
     # ---- sharding ------------------------------------------------------
     def param_logical_axes(self) -> dict:
@@ -377,6 +422,38 @@ class Model(transformer.ServingTrunk):
         if not cfg.tie_embeddings:
             axes["head"] = ("fsdp_embed", "vocab")
         return axes
+
+    def _mamba_segments(self, tp) -> dict:
+        """mamba2's concatenated leaves cut component by component
+        (:mod:`repro_torch.sharding`'s docstring states the layout): by SSD
+        heads over "model" where ``tp.rec``, else every component whole."""
+        cfg = self.cfg
+        ax = "model" if tp is not None and tp.rec else None
+        gn = cfg.ssm_ngroups * cfg.ssm_state
+        bc_ax = ax if ax and cfg.ssm_ngroups % tp.m == 0 else None
+        di, h = cfg.d_inner, cfg.ssm_heads
+        xbc = ((di, ax), (gn, bc_ax), (gn, bc_ax))
+        heads = Segments(((h, ax),))
+        return {"in_proj": Segments(((di, ax),) + xbc + ((h, ax),)),
+                "conv": Segments(xbc), "heads": heads,
+                "inner": Segments(((di, ax),))}
+
+    def param_cuts(self, tp) -> Optional[dict]:
+        """mamba2's leaves cut component by component (None for the other
+        families)."""
+        if self.cfg.family != "mamba2":
+            return None
+        seg = self._mamba_segments(tp)
+        return {"layers": {"in_proj": seg["in_proj"], "conv_w": seg["conv"],
+                           "conv_b": seg["conv"], "a_log": seg["heads"],
+                           "d_skip": seg["heads"], "dt_bias": seg["heads"],
+                           "gate_norm": {"scale": seg["inner"]}}}
+
+    def cache_cuts(self, tp) -> Optional[dict]:
+        """mamba2's conv state cut as its ``conv_w`` (None otherwise)."""
+        if self.cfg.family != "mamba2":
+            return None
+        return {"conv": self._mamba_segments(tp)["conv"]}
 
     def cache_logical_axes(self, cache) -> dict:
         """Logical axes of a decode cache: K/V split over their KV heads

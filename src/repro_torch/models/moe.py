@@ -10,21 +10,43 @@ sort-gather dispatch, as the reference's ``models/moe.py``.
    (standard capacity-factor semantics: which tokens drop depends on the
    call's token count).
 3. Per-expert products ``(E, C, d) @ (E, d, f)`` (``torch.bmm``; the
-   reference's ``jnp.einsum`` runs outside any Pallas kernel too).
+   reference's ``jnp.einsum`` runs outside any Pallas kernel too), one
+   call for each of EXPERT_SPLITS equal blocks of the E experts: the
+   library picks its algorithm by batch count, and on the H100 a decode
+   step's products over 64 experts are not the same bits as over 128
+   (``launch/row_probe --batches``), so blocks of E / EXPERT_SPLITS give
+   a rank holding E / m experts, m = 1, 2 or 4, one device's calls and
+   bits.
 4. Combine: each token sums its kept experts' gated outputs in increasing
    expert order, starting from zero.  That is the order in which the
    reference's scatter-add into zeros meets them, and unlike
    ``index_add_`` on the card (atomics) it gives the same bits every run.
 
-One dispatch group: the reference groups tokens by data-parallel shard
-only under a mesh, which the port does not have yet.
+Dispatch groups (the reference's ``_num_groups``): under a mesh the tokens
+are cut into ``groups`` contiguous blocks, one a data-parallel shard, and
+steps 2-3 run per block with the capacity of a block's token count
+(:func:`num_groups`: the "data" axis size, halved until it divides the
+token count).  So a "data" axis changes which tokens drop.
+
+Expert parallelism (experts over "model"): the router, routing, dispatch
+and capacity run identically on every rank; a rank's expert leaves hold
+its contiguous block of E / m experts, and it computes only their slice of
+the dispatched slots.  Each rank writes the gated rows of the (token, k)
+pairs its experts took into an (N, k, d) tensor, zeros elsewhere; ``reduce``
+(a sum over "model") then gives every rank every pair's row exactly (x + 0
++ ... + 0), and the combine runs as unsharded.  That collective is N k d
+floats a layer, where gathering the experts' outputs would be E C d.
 """
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.init import dense_init
+
+EXPERT_SPLITS = 4   # the experts' products: a torch.bmm a quarter of them
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -82,6 +104,16 @@ def load_balance_loss(probs: torch.Tensor, expert_ids: torch.Tensor,
     return num_experts * torch.sum(me * ce)
 
 
+def num_groups(n: int, data: int) -> int:
+    """Dispatch groups of an ``n``-token call under a mesh whose
+    data-parallel axes hold ``data`` shards: ``data`` halved until it
+    divides ``n`` (the reference's ``_num_groups``; 1 without a mesh)."""
+    g = data
+    while g > 1 and n % g != 0:
+        g //= 2
+    return max(g, 1)
+
+
 def _dispatch_group(tokens: torch.Tensor, gate_vals: torch.Tensor,
                     expert_ids: torch.Tensor, num_experts: int, top_k: int,
                     cap: int) -> tuple:
@@ -119,29 +151,72 @@ def _dispatch_group(tokens: torch.Tensor, gate_vals: torch.Tensor,
     return xe, tok_idx, gates, pair_slot.reshape(n, top_k)
 
 
-def _combine(ye: torch.Tensor, expert_ids: torch.Tensor,
-             pair_slot: torch.Tensor) -> torch.Tensor:
-    """Each token's kept gated expert outputs summed in increasing expert
-    order from zero: the reference's scatter-add order, deterministic."""
+def _pair_rows(ye: torch.Tensor, pair_slot: torch.Tensor,
+               first: int = 0) -> torch.Tensor:
+    """(N, k, d): each (token, k) pair's gated expert output, read from
+    ``ye`` (the slots of experts ``first`` .. ``first + ye.shape[0] - 1``),
+    zero for a dropped pair and for a pair whose expert is not in ``ye``."""
     d = ye.shape[-1]
     rows = ye.reshape(-1, d)
+    local = pair_slot - first * ye.shape[1]
+    kept = (pair_slot >= 0) & (local >= 0) & (local < rows.shape[0])
+    picked = rows[torch.where(kept, local, 0).reshape(-1)].reshape(
+        *pair_slot.shape, d)
+    return torch.where(kept[..., None], picked,
+                       torch.zeros((), dtype=ye.dtype, device=ye.device))
+
+
+def _combine(rows: torch.Tensor, expert_ids: torch.Tensor) -> torch.Tensor:
+    """Each token's pair rows (N, k, d) summed in increasing expert order
+    from zero: the reference's scatter-add order, deterministic."""
     order = torch.argsort(expert_ids, dim=-1, stable=True)
-    slot = torch.gather(pair_slot, 1, order)
-    kept = slot >= 0
-    picked = rows[torch.clamp_min(slot, 0).reshape(-1)].reshape(
-        *slot.shape, d)
-    picked = torch.where(kept[..., None], picked,
-                         torch.zeros((), dtype=ye.dtype, device=ye.device))
-    out = torch.zeros((slot.shape[0], d), dtype=ye.dtype, device=ye.device)
-    for j in range(slot.shape[1]):
+    picked = torch.gather(rows, 1, order[..., None].expand_as(rows))
+    out = torch.zeros((rows.shape[0], rows.shape[-1]), dtype=rows.dtype,
+                      device=rows.device)
+    for j in range(rows.shape[1]):
         out = out + picked[:, j]
     return out
 
 
+def expert_bmm(x: torch.Tensor, w: torch.Tensor, block: int
+               ) -> torch.Tensor:
+    """x (E', C, a) @ w (E', a, b), one ``torch.bmm`` a ``block`` of
+    experts."""
+    if w.shape[0] <= block:
+        return torch.bmm(x, w)
+    return torch.cat([torch.bmm(x[i:i + block], w[i:i + block])
+                      for i in range(0, w.shape[0], block)])
+
+
+def expert_block(num_experts: int) -> int:
+    """Experts a ``torch.bmm`` multiplies: E / EXPERT_SPLITS."""
+    return max(1, num_experts // EXPERT_SPLITS)
+
+
+def _experts(params: dict, xe: torch.Tensor, act: str, block: int
+             ) -> torch.Tensor:
+    """The per-expert FFN of the dispatched slots xe (E', C, d) through
+    the leaves' E' experts, ``block`` experts a product."""
+    if act in ("swiglu", "geglu"):
+        g = expert_bmm(xe, params["w_gate"], block)
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * expert_bmm(xe, params["w_up"], block)
+    else:
+        h = F.gelu(expert_bmm(xe, params["w_up"], block), approximate="tanh")
+    return expert_bmm(h, params["w_down"], block)
+
+
 def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float, act: str) -> tuple:
+              capacity_factor: float, act: str, groups: int = 1,
+              first_expert: int = 0,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> tuple:
     """Returns (output (B, T, d) in ``x``'s dtype, the load-balance loss
-    (a float32 scalar))."""
+    (a float32 scalar)).  ``groups`` dispatch groups of contiguous tokens
+    (it divides B T), each with its own capacity.  Expert leaves holding
+    fewer experts than the router (a rank's block, from ``first_expert``)
+    compute only their experts' slots, and ``reduce`` sums the zero-filled
+    (N, k, d) pair rows over the ranks that hold the rest."""
     b, t, d = x.shape
     n = b * t
     tokens = x.reshape(n, d)
@@ -149,16 +224,28 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int,
     probs, gate_vals, expert_ids = route(params["router"], tokens, top_k)
     aux = load_balance_loss(probs, expert_ids, top_k)
 
-    cap = capacity(n, top_k, num_experts, capacity_factor)
-    xe, _, gates, pair_slot = _dispatch_group(tokens, gate_vals, expert_ids,
-                                              num_experts, top_k, cap)
-    if act in ("swiglu", "geglu"):
-        g = torch.bmm(xe, params["w_gate"])
-        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
-        h = g * torch.bmm(xe, params["w_up"])
-    else:
-        h = F.gelu(torch.bmm(xe, params["w_up"]), approximate="tanh")
-    ye = torch.bmm(h, params["w_down"])
-    ye = ye * gates[..., None].to(ye.dtype)
-    out = _combine(ye, expert_ids, pair_slot)
+    if n % groups:
+        raise ValueError(f"{groups} dispatch groups do not divide {n} "
+                         f"tokens")
+    ng = n // groups
+    cap = capacity(ng, top_k, num_experts, capacity_factor)
+    held = params["w_up"].shape[0]
+    mine = slice(first_expert, first_expert + held)
+    rows = []
+    for g in range(groups):
+        part = slice(g * ng, (g + 1) * ng)
+        xe, _, gates, pair_slot = _dispatch_group(
+            tokens[part], gate_vals[part], expert_ids[part], num_experts,
+            top_k, cap)
+        ye = _experts(params, xe[mine], act, expert_block(num_experts))
+        ye = ye * gates[mine, :, None].to(ye.dtype)
+        rows.append(_pair_rows(ye, pair_slot, first_expert))
+    rows = rows[0] if groups == 1 else torch.cat(rows)
+    if held < num_experts:
+        if reduce is None:
+            raise ValueError(f"the expert leaves hold {held} of "
+                             f"{num_experts} experts: pass reduce, the sum "
+                             f"over the ranks holding the rest")
+        rows = reduce(rows)
+    out = _combine(rows, expert_ids)
     return out.reshape(b, t, d).to(x.dtype), aux.to(torch.float32)

@@ -33,6 +33,7 @@ from repro_torch.models import layers, moe
 from repro_torch.models.init import layer
 from repro_torch.serve import kv_cache
 from repro_torch.serve.kv_cache import PagedKVCache, chunk_write_index
+from repro_torch.sharding import batch_shards
 
 
 def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -74,20 +75,22 @@ def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def embed_inputs(params: dict, cfg, tokens=None, prefix_embeds=None
-                 ) -> tuple:
+def embed_inputs(params: dict, cfg, tokens=None, prefix_embeds=None,
+                 embed_fn=None) -> tuple:
     """(x (B, T, d), positions (1, T), prefix_len), the reference's
     ``_embed_inputs``: audio's inputs are its frame embeddings (B, T, d)
     plus sinusoidal positions; a VLM's ``prefix_embeds`` (B, P, d) precede
     its token embeddings, and the prefix-LM mask then opens the first P
-    positions to every query."""
+    positions to every query.  ``embed_fn(tokens)`` looks the tokens up
+    (default :func:`embed`; the serving trunk's on a mesh, whose rank holds
+    a slice of the vocabulary)."""
     prefix_len = 0
     if cfg.family == "audio":
         x = prefix_embeds + _sinusoidal(
             prefix_embeds.shape[1], cfg.d_model,
             prefix_embeds.device).to(prefix_embeds.dtype)[None]
     else:
-        x = embed(params, cfg, tokens)
+        x = (embed_fn or (lambda t: embed(params, cfg, t)))(tokens)
         if cfg.family == "vlm" and prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
             prefix_len = prefix_embeds.shape[1]
@@ -267,7 +270,11 @@ class ServingTrunk:
     gathered q/k/v).  Decode and chunk steps take this rank's rows where
     "data" divides the batch: a linear cache holds only those rows, a
     page pool all of them (each step's new K/V gathered over "data"), and
-    the hidden states are gathered before the head."""
+    the hidden states are gathered before the head.  An MoE block
+    dispatches in the reference's groups (one a "data" shard: a step's rows
+    where "data" split them, else :func:`~repro_torch.models.moe.
+    num_groups` of the call's tokens) and runs this rank's block of the
+    experts, its zero-filled pair rows summed over "model"."""
 
     supports_padded_prefill = True     # causal dense trunk: end padding
     supports_chunked_prefill = True    # is exact, chunks read the cache
@@ -308,6 +315,16 @@ class ServingTrunk:
         return k, v
 
     # ---- mesh helpers (identities without ``tp``) ------------------------
+    def param_cuts(self, tp) -> Optional[dict]:
+        """Leaves whose last dimension a mesh cuts component by component
+        (:class:`~repro_torch.sharding.Segments`); None: every leaf
+        follows its spec."""
+        return None
+
+    def cache_cuts(self, tp) -> Optional[dict]:
+        """The cache's component cuts (as :meth:`param_cuts`)."""
+        return None
+
     def _heads(self) -> tuple:
         """(query heads, KV heads) this rank attends."""
         cfg, tp = self.cfg, self.tp
@@ -498,7 +515,7 @@ class ServingTrunk:
                                 block_kv=self.block_kv,
                                 page_table=page_table, mode=self.mode)
         x = x + self._wo(p, out)
-        return x + self._mlp(p, x)
+        return x + self._mlp(p, x, rows)
 
     def _block_full_kv(self, p, x, pos, *, window: int = 0,
                        prefix_len: int = 0) -> tuple:
@@ -537,12 +554,12 @@ class ServingTrunk:
         s = cache["k"].shape[2]
         for i in range(self.cfg.num_layers):
             x = self._block_decode(layer(params["layers"], i), x,
-                                   self._kv_entries(cache, i), cur_len)
+                                   self._kv_entries(cache, i), cur_len, rows)
         logits = self._head(params, self._gather_rows(x, rows))
         cache["len"] = torch.clamp_max(cur_len + 1, s).to(torch.int32)
         return logits, cache
 
-    def _block_decode(self, p, x, kv, cur_len):
+    def _block_decode(self, p, x, kv, cur_len, rows=None):
         b = x.shape[0]
         s = kv[0].shape[1]
         q, k, v = self._qkv(p, x, cur_len[:, None])
@@ -568,7 +585,7 @@ class ServingTrunk:
         out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, s),
                                block_kv=self.block_kv, mode=self.mode)
         x = x + self._wo(p, out)
-        return x + self._mlp(p, x)
+        return x + self._mlp(p, x, rows)
 
     def _decode_step_paged(self, params: dict, token, cache: PagedKVCache):
         """The decode step over page pools: the token's K/V land in the
@@ -601,14 +618,16 @@ class ServingTrunk:
         out = ops.flash_decode(q, kv, torch.clamp_max(cur_len + 1, cap),
                                page_table=page_table, mode=self.mode)
         x = x + self._wo(p, out)
-        return x + self._mlp(p, x)
+        return x + self._mlp(p, x, rows)
 
     # ---- mlp -----------------------------------------------------------
-    def _mlp(self, p, x):
+    def _mlp(self, p, x, rows=None):
+        """The MLP (or MoE) half of a block on ``x``: this rank's rows when
+        ``rows`` is not None."""
         h = layers.apply_norm(p["ln_mlp"], x, self.cfg.norm)
         h = act_transform(p.get("mlp_t"), h)
         if self.cfg.num_experts:
-            return self._moe_apply(p["moe"], h)
+            return self._moe_apply(p["moe"], h, split=rows is not None)
         mp = p["mlp"]
 
         def lin(wn, bn):
@@ -618,12 +637,28 @@ class ServingTrunk:
         return self._out(layers.mlp_hidden(lin, self.cfg.act), mp["w_down"],
                          self.cfg.d_ff)
 
-    def _moe_apply(self, mp: dict, h: torch.Tensor) -> torch.Tensor:
-        """The MoE half on float experts.  Capacity is per call, so
-        which tokens drop depends on the call's token count: padded
+    def _moe_apply(self, mp: dict, h: torch.Tensor,
+                   split: bool = False) -> torch.Tensor:
+        """The MoE half on float experts.  Capacity is per dispatch group,
+        so which tokens drop depends on the call's token count: padded
         prefill rows and idle decode rows route too (the reference's
-        approximation for padded and chunked prefill)."""
-        cfg = self.cfg
-        return moe.apply_moe(mp, h, top_k=cfg.top_k,
-                             capacity_factor=cfg.capacity_factor,
-                             act=cfg.act)[0]
+        approximation for padded and chunked prefill).  The groups are the
+        reference's: one a data-parallel shard of the mesh (``split``: the
+        step's rows are this rank's shard, one group), else
+        :func:`~repro_torch.models.moe.num_groups` of the call's tokens
+        over the "data" axis (this rank's, or a mesh bound by
+        :func:`repro_torch.sharding.use_mesh`).  Expert leaves cut over
+        "model" hold this rank's block of the experts."""
+        cfg, tp = self.cfg, self.tp
+        if tp is not None:
+            data = tp.d if tp.batch else 1
+        else:
+            data = batch_shards()
+        groups = 1 if split else moe.num_groups(h.shape[0] * h.shape[1],
+                                                data)
+        held = mp["w_up"].shape[0]
+        first = 0 if tp is None else tp.span(held, cfg.num_experts).start
+        return moe.apply_moe(
+            mp, h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            act=cfg.act, groups=groups, first_expert=first,
+            reduce=None if tp is None else (lambda r: tp.sum(r, "model")))[0]

@@ -75,13 +75,19 @@ shards under ``rules`` (default :func:`repro_torch.sharding.
 make_serving_rules`): QTensor linears column-parallel over "model" with
 codes, scale and zero points cut alike, ``wo`` / ``w_down`` whole, the
 vocabulary split, the cache over its KV heads (a linear cache's batch
-over "data").  The model runs them through its ``tp``
+over "data"); an MoE block's experts over "model", mamba2's SSD heads and
+griffin's rnn channels over "model" with their states (mamba2's
+concatenated leaves cut component by component, its ``param_cuts`` /
+``cache_cuts``).  The model runs them through its ``tp``
 (:class:`~repro_torch.serve.tensor_parallel.TensorParallel`).  The
 scheduler is unchanged and runs the same on every rank: page tables,
 lens, last tokens, sampling seeds and fault probes are replicated host
 state, and every rank samples the same logits, so admission, eviction,
 preemption, quarantine and prefix sharing decide the same everywhere and
-the streams equal the unsharded engine's.
+the streams equal the unsharded engine's wherever every rank's shard of a
+product is the same bits as that part of the whole (the packed dense and
+MoE trunks on the CPU); a row-split float product summed over "model",
+or a card's ``torch.bmm`` over fewer experts, holds them to logits.
 """
 from __future__ import annotations
 
@@ -249,20 +255,6 @@ def sample(lg: torch.Tensor, temperature: float, top_k: int,
     return torch.argmax(score, dim=-1)
 
 
-def mesh_refusal(model) -> Optional[str]:
-    """What of ``model`` a mesh cannot serve yet, or None: the dense trunk
-    (float or packed, the packed vlm and audio token trunks included)
-    shards; the MoE, recurrent and float-vlm families wait."""
-    cfg = model.cfg
-    if cfg.num_experts:
-        return "the MoE family (experts over \"model\")"
-    if cfg.family in ("mamba2", "griffin"):
-        return f"the {cfg.family} family (its recurrent width over \"model\")"
-    if cfg.family == "vlm" and not hasattr(model, "qcfg"):
-        return "the float vlm with its prefix"
-    return None
-
-
 class Engine:
     def __init__(self, model, params: dict, cfg: ServeConfig,
                  faults: Optional[flt.FaultPlan] = None, *, mesh=None,
@@ -284,10 +276,6 @@ class Engine:
                 f"chunked admission (prefill_chunk={cfg.prefill_chunk}) "
                 f"needs model.prefill_chunk; {type(model).__name__} does "
                 f"not support it")
-        if mesh is not None and mesh_refusal(model):
-            raise NotImplementedError(
-                f"Engine(mesh=...): {mesh_refusal(model)} is not sharded "
-                f"yet (ROADMAP queue 1, item 6); serve it with mesh=None")
         self.cfg = cfg
         self._faults = faults
         # end-padded prompts are exact only for the causal trunk: the
@@ -327,32 +315,47 @@ class Engine:
                              "matched_tokens": 0, "prefilled_tokens": 0}
 
     def _place(self, model, params: dict) -> tuple:
-        """Shard once, at rest: the weights through
+        """Shard once, at rest: the store's cache through
+        ``cache_logical_axes``, which decides the split (attention heads
+        from the KV entries, the recurrent width from the ``ssm`` / ``rnn``
+        states, rows from ``len``), then the weights through
         ``model.param_logical_axes()`` (moved to the model's device as they
-        are cut, so a whole tree on the CPU never reaches the card) and the
-        store's cache through ``cache_logical_axes``; returns the model bound
-        to this rank (``tp``) and its shards."""
+        are cut, so a whole tree on the CPU never reaches the card), with a
+        model's component cuts (mamba2's concatenated leaves); returns the
+        model bound to this rank (``tp``) and its shards."""
         mesh, rules = self.mesh, self.rules
-        specs = tree_shardings(model.param_logical_axes(), params, mesh, rules)
-        params = shard_tree(params, specs, mesh, device=model.device)
         cache = self._kv.cache
         cspecs = tree_shardings(model.cache_logical_axes(cache), cache, mesh,
                                 rules)
-        kspec = cspecs.k if self.cfg.paged else cspecs["k"]
-        kspec = kspec + (None,) * (5 - len(kspec))
+
+        def axis(spec, dim: int):
+            spec = tuple(spec) + (None,) * (dim + 1 - len(spec))
+            return spec[dim]
+
+        if self.cfg.paged:
+            heads, rec, lens = axis(cspecs.k, 3) == "model", False, None
+        else:
+            heads = "k" in cspecs and axis(cspecs["k"], 3) == "model"
+            state = cspecs.get("ssm", cspecs.get("rnn"))
+            rec = state is not None and axis(state, 2) == "model"
+            lens = axis(cspecs["len"], 0)
         batch = rules.get("batch")
-        tp = TensorParallel(mesh, model.cfg, heads=kspec[3] == "model",
+        tp = TensorParallel(mesh, model.cfg, heads=heads, rec=rec,
                             batch="data" in ((batch,) if isinstance(batch, str)
                                              else tuple(batch or ())))
-        local = shard_tree(cache, cspecs, mesh)
+        local = shard_tree(cache, cspecs, mesh, cuts=model.cache_cuts(tp))
         rows = None if self.cfg.paged else tp.rows(self.cfg.max_batch)
-        if (rows is not None) != (kspec[1] == "data" and tp.d > 1):
-            raise ValueError(f"the linear cache's batch spec {kspec[1]!r} "
+        if not self.cfg.paged and (rows is not None) != (lens == "data"
+                                                         and tp.d > 1):
+            raise ValueError(f"the linear cache's batch spec {lens!r} "
                              f"disagrees with the step's row split {rows}")
         if rows is not None:
             self._kv.hold_rows(local, rows)
         else:
             self._kv.cache = local
+        specs = tree_shardings(model.param_logical_axes(), params, mesh, rules)
+        params = shard_tree(params, specs, mesh, device=model.device,
+                            cuts=model.param_cuts(tp))
         return dataclasses.replace(model, tp=tp), params
 
     # ---- submission / cancellation ---------------------------------------

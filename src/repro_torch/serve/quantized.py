@@ -237,11 +237,13 @@ class QuantizedModel(ServingTrunk):
             axes["k_scale"] = axes["v_scale"] = sc
         return axes
 
-    def _moe_apply(self, mp: dict, h: torch.Tensor) -> torch.Tensor:
+    def _moe_apply(self, mp: dict, h: torch.Tensor,
+                   split: bool = False) -> torch.Tensor:
         """The MoE half on packed experts: each expert leaf dequantized
         from its (single-rounding) codes to float32, the float router and
         the float activations ``h`` (not activation-quantized, even at
-        a4) through the capacity dispatch."""
+        a4) through the capacity dispatch.  On a mesh the leaves hold this
+        rank's block of the experts, so only those are dequantized."""
         experts = {k: (v.dequantize() if isinstance(v, QTensor) else v)
                    for k, v in mp.items()}
-        return super()._moe_apply(experts, h)
+        return super()._moe_apply(experts, h, split)

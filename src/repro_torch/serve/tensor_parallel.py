@@ -21,6 +21,13 @@ the query heads), the reference's rule; elsewhere attention runs whole on
 every rank.  A step's rows split over "data" where "data" divides them;
 whole-prompt admission, whose group size varies, runs on every data rank.
 
+The other families' collectives are all ``sum(x, "model")``: an MoE
+block's zero-filled (token, k) pair rows, each rank holding its block of
+the experts (:meth:`span`); a mamba2 block's ``gate_norm`` sum of squares
+and its row-split ``out_proj``, a rank holding its block of the SSD heads;
+griffin's row-split ``w_out``, a rank holding its block of the rnn
+channels (``rec``: the recurrent width is split).
+
 A gloo group's collective on a CUDA tensor is staged through the host: the
 copy to the host waits for this rank's own stream, so the collective sees
 the rank's finished kernels.  NCCL takes CUDA tensors as they are.
@@ -41,7 +48,8 @@ class TensorParallel:
     reference's ``_tp_mesh`` rule).  ``batch``: the rules map "batch" onto
     "data", so steps split their rows where "data" divides them."""
 
-    def __init__(self, mesh, cfg, *, heads: bool, batch: bool = True):
+    def __init__(self, mesh, cfg, *, heads: bool, batch: bool = True,
+                 rec: bool = False):
         sizes = axis_sizes(mesh)
         coord = mesh_coordinate(mesh)
         self.m, self.d = sizes.get("model", 1), sizes.get("data", 1)
@@ -54,6 +62,7 @@ class TensorParallel:
                              f"{cfg.num_kv_heads} KV heads")
         self.heads = heads and self.m > 1
         self.batch = batch and self.d > 1
+        self.rec = rec and self.m > 1
 
     @property
     def size(self) -> int:
@@ -67,6 +76,13 @@ class TensorParallel:
             return None
         n = b // self.d
         return slice(self.di * n, (self.di + 1) * n)
+
+    def span(self, local: int, whole: int) -> slice:
+        """This rank's block of a ``whole``-wide axis (its experts) cut over
+        "model" into blocks of ``local``; all of it where it is not cut."""
+        if local == whole:
+            return slice(0, whole)
+        return slice(self.mi * local, (self.mi + 1) * local)
 
     def cols(self, t: torch.Tensor, width: int) -> torch.Tensor:
         """``t``'s last dim cut to this rank's ``width`` columns when it is

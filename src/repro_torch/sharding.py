@@ -20,6 +20,29 @@ of the whole (:func:`local_shard`, :func:`shard_tree`), cut once, and the
 serving trunk calls its collectives itself
 (:mod:`repro_torch.serve.tensor_parallel`).
 
+Concatenated leaves.  A contiguous cut of a dimension that concatenates
+several components would give one rank whole components and another none,
+so a model can override the cut of such a leaf's last dimension with
+:class:`Segments`: each component cut into equal contiguous blocks over a
+mesh axis, or whole on every rank, and the rank's pieces concatenated in
+the same order (:func:`cut_segments`).  mamba2's leaves are the case (its
+``Model.param_cuts`` / ``cache_cuts``), with H SSD heads of P channels, G
+state groups of N and "model" of size m dividing H:
+
+* ``in_proj`` (L, d, [z | x | B | C | dt]) -> [z_r | x_r | B | C | dt_r]:
+  z and x (H P each) by heads, H P / m a rank (heads ``r H / m`` on),
+  dt (H) by heads; B and C (G N each) whole while m does not divide G,
+  else by groups;
+* ``conv_w`` (L, W, [x | B | C]), ``conv_b`` (L, [x | B | C]) and the conv
+  state (L, B, W - 1, [x | B | C]): the same components as ``in_proj``'s;
+* ``a_log``, ``d_skip``, ``dt_bias`` (L, H) and ``gate_norm``'s scale
+  (L, H P): by heads.
+
+The specs stay the reference's (``in_proj`` ("fsdp_embed", "inner"),
+``a_log`` replicated, ...); only the cut differs.  Where m does not
+divide H, every component stays whole on every rank.  A rank's pieces
+from every rank, component by component, reassemble the whole leaf.
+
 Usage::
 
     specs = tree_shardings(model.param_logical_axes(), params, mesh, rules)
@@ -250,6 +273,59 @@ def tree_shardings(axes_tree, tree, mesh, rules: dict):
     return walk(axes_tree, tree)
 
 
+def batch_shards(mesh=None, rules: Optional[dict] = None) -> int:
+    """The data-parallel shard count of ``mesh`` (default: the bound one):
+    the product of the sizes of the mesh axes the "batch" rule names, 1
+    without a mesh (the reference's MoE dispatch groups)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    rules = rules if rules is not None else current_rules()
+    axis = rules.get("batch")
+    if mesh is None or axis is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    g = 1
+    for a in ((axis,) if isinstance(axis, str) else axis):
+        g *= sizes.get(a, 1)
+    return g
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """The last dimension of a leaf as concatenated components: ``parts``
+    is a tuple of (width, mesh axis or None), a component cut into equal
+    contiguous blocks over that axis, or whole on every rank (None)."""
+    parts: tuple
+
+    @property
+    def width(self) -> int:
+        return sum(w for w, _ in self.parts)
+
+
+def cut_segments(t: torch.Tensor, seg: Segments, mesh,
+                 coord: Optional[dict] = None) -> torch.Tensor:
+    """This rank's pieces of ``t``'s last dimension under ``seg``,
+    concatenated in component order."""
+    if t.shape[-1] != seg.width:
+        raise ValueError(f"segments of width {seg.width} do not cover the "
+                         f"last dimension of {tuple(t.shape)}")
+    sizes = axis_sizes(mesh)
+    coord = coord if coord is not None else mesh_coordinate(mesh)
+    pieces, start = [], 0
+    for width, axis in seg.parts:
+        if axis is None or sizes[axis] == 1:
+            pieces.append(t[..., start:start + width])
+        else:
+            n = width // sizes[axis]
+            if n * sizes[axis] != width:
+                raise ValueError(f"mesh axis {axis} of size {sizes[axis]} "
+                                 f"does not divide a component of width "
+                                 f"{width}")
+            lo = start + coord[axis] * n
+            pieces.append(t[..., lo:lo + n])
+        start += width
+    return torch.cat(pieces, dim=-1).contiguous()
+
+
 def mesh_coordinate(mesh) -> dict:
     """{axis name: this rank's index along it} of a ``DeviceMesh``."""
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -278,19 +354,26 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh,
     return t[tuple(index)].contiguous()
 
 
-def shard_tree(tree, specs, mesh, device=None):
+def shard_tree(tree, specs, mesh, device=None, cuts=None):
     """Every tensor of ``tree`` cut to this rank's local shard under the
     matching entry of ``specs`` (:func:`tree_shardings`), and moved to
     ``device`` when one is given: the whole tree may sit on the CPU and
-    only the shards reach the card."""
+    only the shards reach the card.  ``cuts``, a partial tree of
+    :class:`Segments`, overrides the cut of those leaves' last dimension
+    (their other dimensions follow the spec)."""
     from repro_torch.serve.kv_cache import PagedKVCache
     coord = mesh_coordinate(mesh)
 
-    def cut(t, spec):
-        out = local_shard(t, spec, mesh, coord)
+    def cut(t, spec, seg=None):
+        if seg is not None:
+            spec = _padded(spec, t.ndim)[:-1]
+            out = cut_segments(local_shard(t, spec, mesh, coord), seg, mesh,
+                               coord)
+        else:
+            out = local_shard(t, spec, mesh, coord)
         return out if device is None else out.to(device)
 
-    def walk(node, spec):
+    def walk(node, spec, seg):
         if node is None:
             return None
         if isinstance(node, QTensor):
@@ -299,18 +382,21 @@ def shard_tree(tree, specs, mesh, device=None):
                            cut(node.zp, spec.zp), node.bits, node.group_size)
         if isinstance(node, PagedKVCache):
             fields = {f.name: walk(getattr(node, f.name),
-                                   getattr(spec, f.name))
+                                   getattr(spec, f.name), None)
                       for f in dataclasses.fields(node)
                       if f.name != "page_size"}
             return PagedKVCache(page_size=node.page_size, **fields)
         if isinstance(node, dict):
-            return {k: walk(v, spec[k]) for k, v in node.items()}
+            seg = seg if isinstance(seg, dict) else {}
+            return {k: walk(v, spec[k], seg.get(k)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, s) for v, s in zip(node, spec))
+            seg = seg if isinstance(seg, (list, tuple)) else [None] * len(node)
+            return type(node)(walk(v, s, c)
+                              for v, s, c in zip(node, spec, seg))
         if isinstance(node, torch.Tensor):
-            return cut(node, spec)
+            return cut(node, spec, seg)
         return node
-    return walk(tree, specs)
+    return walk(tree, specs, cuts)
 
 
 def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:

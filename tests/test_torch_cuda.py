@@ -1382,3 +1382,66 @@ def test_mesh_1x1_nccl_engine_equals_no_mesh(dev):
         dist.destroy_process_group()
     assert got == base
     assert mem == base_mem
+
+
+def test_bmm_expert_blocks_on_the_card(dev):
+    """``launch/row_probe --batches`` at small expert shapes: a rank's
+    product over its E / m experts (held in a tensor of its own), m = 2
+    and 4, against the whole E.  Through ``expert_bmm`` (torch.bmm on
+    blocks of E / 4 experts, the MoE's product) the same bits, at a decode
+    step's capacity and a prefill's; a single torch.bmm call over E / m
+    experts at most 1e-6 of the largest magnitude away (its bits may move
+    with the batch count)."""
+    from repro_torch.launch.row_probe import BATCH_CAPS, probe_batches
+    for e, d, f in ((32, 64, 128), (16, 256, 96)):
+        for cap in BATCH_CAPS:
+            for m, (_, _, rel, up, down) in probe_batches(e, d, f, cap,
+                                                          dev).items():
+                assert rel <= 1e-6, (e, d, f, cap, m, rel)
+                assert up == down == 0, (e, d, f, cap, m, up, down)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-1.3b"])
+def test_mesh_1x1_nccl_engine_families_equal_no_mesh(dev, arch):
+    """A world of one over NCCL serves reduced qwen3-moe (packed W4A4 kv8,
+    paged) and mamba2 (float): the unsharded engine's streams token for
+    token and its bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import random_packed_lm
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.quantized import QuantizedModel
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(7)
+    if cfg.num_experts:
+        q = QuantConfig(w_bits=4, a_bits=4, group_size=32, kv_bits=8)
+        params = random_packed_lm(cfg, q, 0, dev)
+        model = QuantizedModel(cfg, q, device="cuda", block_kv=8)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in (13, 9, 26, 5)]
+        scfg = ServeConfig(max_batch=2, max_len=48, max_new=8, page_size=8,
+                           paged=True, num_pages=6, prefill_chunk=8)
+    else:
+        model = Model(cfg, "cuda")
+        params = model.init(0)
+        prompts = [rng.integers(0, cfg.vocab_size, 12) for _ in range(4)]
+        scfg = ServeConfig(max_batch=2, max_len=48, max_new=8)
+
+    def run(mesh):
+        eng = Engine(model, params, scfg, mesh=mesh)
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run(max_steps=600)
+        return [r.out_tokens for r in reqs], eng.memory_report()
+
+    base, base_mem = run(None)
+    mesh = make_serving_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        got, mem = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got == base
+    assert mem == base_mem

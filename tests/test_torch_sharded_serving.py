@@ -173,6 +173,7 @@ def child_main(rank: int, world: int, port: int, out_dir: str,
                                                                     mesh)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -233,7 +234,7 @@ def _same(got: dict, want: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# in-process: a 1 x 1 mesh, validation, refusals
+# in-process: a 1 x 1 mesh, validation, loading
 # ---------------------------------------------------------------------------
 
 def test_mesh_engine_identity_1x1(base):
@@ -255,15 +256,31 @@ def test_serving_mesh_validation():
         make_serving_mesh(0, 1, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-1.3b",
-                                  "recurrentgemma-2b"])
-def test_mesh_refuses_families_outside_the_slice(arch):
-    cfg = get_config(arch).reduced()
-    model = Model(cfg, "cpu")
-    mesh = make_serving_mesh(1, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        Engine(model, model.init(0), ServeConfig(max_batch=2, max_len=32),
-               mesh=mesh)
+def test_float_ckpt_on_mesh_loads_to_the_cpu(tmp_path, monkeypatch):
+    """On a mesh a float ``--ckpt`` tree loads to the CPU, as
+    ``--load-packed`` does, so only each rank's shards reach the card; off
+    a mesh it loads to the serving device ("cuda" here is only the name
+    the loader is asked for: the load itself is recorded and done on the
+    CPU)."""
+    from repro_torch.launch import serve
+    from repro_torch.train import checkpoints
+    cfg = get_config("llama-micro")
+    checkpoints.save(str(tmp_path), 0, Model(cfg, "cpu").init(0))
+    asked = []
+
+    def load(ckpt, cfg, qcfg, device):
+        asked.append(str(device))
+        return checkpoints.load_tree(ckpt, cfg, qcfg, device="cpu")
+    monkeypatch.setattr(serve, "load_float_params", load)
+    argv = ["--arch", "llama-micro", "--fp", "--ckpt", str(tmp_path)]
+    for flags in ([], ["--mesh-model", "2"], ["--mesh-data", "2"]):
+        args = serve.build_parser().parse_args(argv + flags)
+        tree = serve.load_params(args, cfg, serve.quant_config(args),
+                                 "cuda")[0]
+        leaves = [t for t in torch.utils._pytree.tree_leaves(tree)
+                  if torch.is_tensor(t)]
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+    assert asked == ["cuda", "cpu", "cpu"]
 
 
 # ---------------------------------------------------------------------------
