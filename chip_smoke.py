@@ -343,7 +343,30 @@ failure raises (exit code != 0).
    (a)'s later runs and (d)-(e)'s beside phase 11, so those
    timings share the card.  Depths cut for the script's time (PERF.md
    section 4).
-18. summary.  Every kernel's ``launches`` is the count of the runs above
+18. training the dense trunk on a mesh (no kernel of its own, as phase
+   13; llama-7b widths at depth 2, phase 13(b)'s, 4 x 256 tokens a step,
+   3 steps from the seed-0 init): (a) the steps on a 1 x 1 mesh (NCCL, a
+   world of one) bit for bit those of 13(b)'s plain step; (b) two ranks
+   sharing the card over gloo (every collective staged through the host)
+   at (1, 2) and at (2, 1) (FSDP over "data", tensor parallelism over
+   "model"): the first step's loss, grad norm and every leaf within 1e-5
+   of the unsharded step's (each leaf's largest magnitude), the later
+   losses and leaves within 1e-4 (a parameter element whose gradient
+   nearly cancels, within the learning-rate budget), the replicated leaves
+   bit-equal on both ranks, each rank's parameter and moment bytes below
+   one device's; (c) (2, 1) with the int8 gradient reduction
+   (``make_int8_psum``): finite losses logged beside the float mean's;
+   step time, tokens/s and peak memory beside 6 x params x tokens / 67
+   TFLOP/s for every run; (d) ``python -m torch.distributed.run
+   --nproc-per-node 2 -m repro_torch.launch.train --arch opt-125m --mesh
+   host`` (published width and depth, 20 steps of 16 x 128 tokens, two
+   ranks sharing the card): rank 0 alone prints the final line and
+   writes the whole checkpoint, which ``launch/calibrate --ckpt`` reads,
+   its held-out fp perplexity below the seed-0 init's.  (b)-(d) run in
+   processes of their own, (d) after (b)-(c), and (a) after them (the
+   script stops (d) with SIGTERM, which ``torch.distributed.run``
+   forwards to its workers).
+19. summary.  Every kernel's ``launches`` is the count of the runs above
    that drive the main path (the startup packing of phases 3, 4, 12, 14
    and 16, phases 3-6, 9, 11, 12, phase 17's serving runs (each rank's
    launches counted in its process), the serving runs of phase 8, phase 10's
@@ -507,17 +530,32 @@ def log(msg: str) -> None:
 CHILDREN: list = []
 
 
-def start_child(cmd: list, **kw) -> subprocess.Popen:
+def start_child(cmd: list, launcher: bool = False,
+                **kw) -> subprocess.Popen:
+    """``cmd`` started and registered.  A ``launcher`` (``torch.distributed
+    .run``) is stopped with SIGTERM, which it forwards to its workers, and
+    killed only if it has not ended 30 s later."""
     proc = subprocess.Popen(cmd, **kw)
+    proc.launcher = launcher
     CHILDREN.append(proc)
     return proc
 
 
+def stop_child(proc) -> None:
+    if proc.poll() is None and proc.launcher:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
 def stop_children() -> None:
     for proc in CHILDREN:
-        if proc.poll() is None:
-            proc.kill()
-        proc.wait()
+        stop_child(proc)
 
 
 def child_env() -> dict:
@@ -693,7 +731,10 @@ def main() -> None:
     # ---- 16. quantized vlm and audio ---------------------------------------
     phases.append(vlm_audio_phase(torch))
 
-    # ---- 18. summary -------------------------------------------------------
+    # ---- 18. training on a mesh --------------------------------------------
+    phases.append(mesh_train_phase(torch))
+
+    # ---- 19. summary -------------------------------------------------------
     for phase in phases:
         for name, n in phase.items():
             counts[name] += n
@@ -5375,6 +5416,547 @@ def hubert_step_vs_cpu(torch, card) -> None:
             and max(opens["causal", k] for k in ("quant", "float")) == 0.0):
         raise RuntimeError("qaudio-step: the calibration forwards do not "
                            "attend as the config's mask says")
+
+
+# ---------------------------------------------------------------------------
+# 18. training on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN = ("llama-7b", 2)     # phase 13(b)'s widths and depth
+MESH_TRAIN_ROWS = (4, 256)       # a step's global batch: rows x tokens
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_WARMUP = 5            # 13(b)'s schedule: max(steps // 20, 5)
+MESH_TRAIN_LR = 3e-4
+MESH_TRAIN_DEVICE = "cuda"       # "cpu" rehearses the phase (gloo, micro)
+# the CPU lane's bounds (tests/test_torch_sharded_train.py): the first
+# step's loss, grad norm and leaves within 1e-5, the later steps' within
+# 1e-4; a parameter element whose first moment is below 1e-4 of its leaf's
+# largest (its gradient nearly cancels: Adam moves it by about lr sign(g))
+# within the learning-rate budget, at most 1e-3 of the elements
+MESH_TRAIN_TOL = (1e-5, 1e-4)
+# (tag, (data, model), int8 reduction) of (b) and (c)
+MESH_TRAIN_RUNS = (("1x2", (1, 2), False), ("2x1", (2, 1), False),
+                   ("2x1-int8", (2, 1), True))
+MESH_TRAIN_CLI = ["--arch", "opt-125m", "--mesh", "host", "--steps", "20",
+                  "--global-batch", "16", "--seq", "128", "--ckpt-every",
+                  "20", "--seed", "0"]
+
+
+def mesh_train_phase(torch) -> dict:
+    """Phase 18 (see the module docstring); no kernel runs in training, so
+    it returns no launches."""
+    return MeshTrainRuns(torch).finish(torch)
+
+
+class MeshTrainRuns:
+    """Phase 18: (b)-(c)'s two ranks (:class:`MeshTrainRanks`) start at
+    once, and a thread starts (d)'s ``torch.distributed.run`` when they
+    end, so the main process could run other work beside them;
+    :meth:`finish` waits, runs (a) in the main process (the card then
+    free of the phase's processes), gates (b)-(c), checks (d)'s checkpoint
+    through ``launch/calibrate`` and returns no launches.  A failure there
+    fails the script."""
+
+    def __init__(self, torch):
+        import tempfile
+        import threading
+        self.t0 = time.perf_counter()
+        self.card = card_name(torch)
+        self.tmp = Path(tempfile.mkdtemp(prefix="mesh-train-"))
+        self.ranks = MeshTrainRanks(self.tmp)
+        self.cli, self.error = None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            self.ranks.wait()
+            self.cli = mesh_train_cli_run(self.tmp)
+        except Exception as e:           # re-raised by finish()
+            self.error = e
+
+    def finish(self, torch) -> dict:
+        import shutil
+        try:
+            self.thread.join()
+            if self.error is not None:
+                raise self.error
+            ranks = self.ranks.results()
+            log(f"[mesh-train] (b)-(c) two ranks {self.ranks.seconds:.1f} s "
+                f"from their start; (d) {self.cli['seconds']:.1f} s after "
+                f"them; {time.perf_counter() - self.t0:.1f} s from the "
+                f"phase's start to the end of (d)")
+            t0 = time.perf_counter()
+            single = mesh_train_single(torch, self.card)
+            log(f"[mesh-train] (a) {time.perf_counter() - t0:.1f} s")
+            mesh_train_gates(ranks, single, self.card)
+            mesh_train_cli_check(torch, self.tmp, self.cli, self.card)
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        log(f"[mesh-train] phase 18 wall time {time.perf_counter() - self.t0:.1f}"
+            f" s from its start; {self.card}")
+        return zero_counts()
+
+
+def _mesh_train_setup(torch, device, arch=MESH_TRAIN,
+                      rows=MESH_TRAIN_ROWS) -> tuple:
+    """(cfg, model, Adam config, the steps' global batches) of (a)-(c):
+    ``arch`` (name, depth), ``rows`` x tokens a step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus, make_batch_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamConfig
+    name, depth = arch
+    cfg = dataclasses.replace(get_config(name), num_layers=depth)
+    fn = make_batch_fn(MarkovCorpus(cfg.vocab_size, seed=0), *rows)
+    batches = [{"tokens": torch.from_numpy(fn(i)["tokens"]).to(device)}
+               for i in range(MESH_TRAIN_STEPS)]
+    return (cfg, build_model(cfg, device),
+            AdamConfig(lr=MESH_TRAIN_LR, state_dtype=cfg.opt_state_dtype),
+            batches)
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _timed_steps(torch, step, state, batches, keep=None) -> tuple:
+    """(final state, [(loss, grad norm, seconds)]), each step timed on
+    the host clock between synchronizes; ``keep(i, state)`` after step
+    ``i``, outside the timing."""
+    hist = []
+    for i, b in enumerate(batches):
+        _sync(torch)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        _sync(torch)
+        hist.append((loss, gn, time.perf_counter() - t0))
+        if keep is not None:
+            keep(i, state)
+    return state, hist
+
+
+def _step_line(hist, cfg, tokens: int) -> str:
+    """The median step after the first, tokens/s and the share of 6 x
+    params x tokens / 67 TFLOP/s."""
+    med = statistics.median(h[2] for h in hist[1:])
+    bound = train_bound_ms(cfg.param_count(), tokens)
+    share = bound / (med * 1e3)
+    return (f"first step {hist[0][2]:.3f} s, median {med * 1e3:.2f} ms over "
+            f"{len(hist) - 1} steps = {tokens / med:.0f} tokens/s; bound 6 x "
+            f"params x tokens / 67 TFLOP/s = {bound:.2f} ms ({share:.3f} of "
+            f"it)")
+
+
+def mesh_train_single(torch, card: str) -> dict:
+    """(a) the steps on a 1 x 1 mesh (NCCL, a world of one) against 13(b)'s
+    plain step on the same init and batches: bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.parallel import state_bytes
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg, model, adam, batches = _mesh_train_setup(torch, MESH_TRAIN_DEVICE,
+                                                  MESH_TRAIN, MESH_TRAIN_ROWS)
+    tokens = MESH_TRAIN_ROWS[0] * MESH_TRAIN_ROWS[1]
+    runs = {}
+    for tag in ("plain", "1x1"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(1, 1, device=MESH_TRAIN_DEVICE) if tag == "1x1" \
+            else None
+        try:
+            if mesh is not None and dist.get_backend() != (
+                    "nccl" if MESH_TRAIN_DEVICE == "cuda" else "gloo"):
+                raise RuntimeError(f"mesh-train-a: a world of one on "
+                                   f"{MESH_TRAIN_DEVICE} chose "
+                                   f"{dist.get_backend()}")
+            state = init_train_state(model, 0, adam, mesh=mesh)
+            step = make_train_step(model, adam, MESH_TRAIN_STEPS,
+                                   MESH_TRAIN_WARMUP, mesh=mesh)
+            state, hist = _timed_steps(torch, step, state, batches)
+        finally:
+            if mesh is not None:
+                dist.destroy_process_group()
+        runs[tag] = {"hist": hist, "bytes": state_bytes(state),
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "state": {k: v.cpu() for k, v in _named(state).items()}}
+        del state, step
+    plain, one = runs["plain"], runs["1x1"]
+    same = sum(torch.equal(one["state"][k], v)
+               for k, v in plain["state"].items())
+    for tag, run in runs.items():
+        log(f"[mesh-train-a] {tag} {cfg.name} x{cfg.num_layers}, "
+            f"{MESH_TRAIN_ROWS[0]} x {MESH_TRAIN_ROWS[1]} tokens a step: "
+            f"{_step_line(run['hist'], cfg, tokens)}; bytes {run['bytes']}; "
+            f"peak memory {run['peak'] / 2**30:.2f} GiB; losses "
+            f"{[h[0] for h in run['hist']]}; {card}")
+    backend = "nccl" if MESH_TRAIN_DEVICE == "cuda" else "gloo"
+    log(f"[mesh-train-a] 1 x 1 mesh ({backend}) vs 13(b)'s plain step: "
+        f"{same} of {len(plain['state'])} leaves "
+        f"bit-equal after {MESH_TRAIN_STEPS} steps")
+    if same != len(plain["state"]) or [h[:2] for h in plain["hist"]] != \
+            [h[:2] for h in one["hist"]]:
+        raise RuntimeError("mesh-train-a: the 1 x 1 mesh's steps are not "
+                           "the plain steps bit for bit")
+    return {"hist": plain["hist"], "bytes": plain["bytes"],
+            "peak": plain["peak"], "cfg": cfg}
+
+
+class MeshTrainRanks:
+    """(b)-(c): two ranks sharing the card over gloo
+    (:func:`mesh_train_rank_main`, one process a rank); :meth:`wait`
+    waits, :meth:`results` returns each rank's results."""
+
+    def __init__(self, tmp: Path):
+        from repro_torch.launch.mesh import free_port
+        self.tmp = tmp
+        spec = tmp / "mesh-train.json"
+        spec.write_text(json.dumps({"out": str(tmp),
+                                    "device": MESH_TRAIN_DEVICE,
+                                    "arch": MESH_TRAIN,
+                                    "rows": MESH_TRAIN_ROWS}))
+        port = free_port()
+        self.t0 = time.perf_counter()
+        self.procs = [start_child(
+            [sys.executable, "-c", f"import chip_smoke; "
+             f"chip_smoke.mesh_train_rank_main({r}, 2, {port}, "
+             f"{str(spec)!r})"], cwd=ROOT, env=child_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+
+    def wait(self) -> None:
+        """Wait for both ranks (no logging: it may run in a thread)."""
+        self.outs = []
+        try:
+            for proc in self.procs:
+                self.outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in self.procs:
+                proc.kill()
+        self.seconds = time.perf_counter() - self.t0
+
+    def results(self) -> list:
+        """Log the ranks' lines and return each rank's results; a rank that
+        failed fails the script."""
+        for r, (proc, out) in enumerate(zip(self.procs, self.outs)):
+            lines = out.splitlines()
+            for line in (lines if proc.returncode == 0 else lines[-40:]):
+                if line.startswith("[mesh-train") or proc.returncode:
+                    log(line if line.startswith("[") else
+                        f"[mesh-train rank {r}] {line}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"mesh-train rank {r} failed (exit "
+                                   f"{proc.returncode})")
+        return [json.loads((self.tmp / f"mesh-train-rank{r}.json")
+                           .read_text()) for r in range(2)]
+
+
+def _train_specs(mt) -> dict:
+    """{checkpoint key: spec} of every leaf of a TrainState on ``mt``'s
+    mesh."""
+    out = {"1||count": (), "2": ()}
+
+    def walk(spec, path):
+        if isinstance(spec, dict):
+            for k, v in spec.items():
+                walk(v, path + (k,))
+            return
+        for pre in ("0", "1||mu", "1||nu"):
+            out["||".join((pre,) + path)] = spec
+    walk(mt.specs, ())
+    return out
+
+
+def _replicated(mt, state) -> dict:
+    """{key: [block, digest]} of every leaf some mesh axis of more than one
+    rank does not split: its bytes' digest and this rank's coordinates on
+    the axes that do split it."""
+    import hashlib
+    named = _named(state)
+    out = {}
+    for key, spec in _train_specs(mt).items():
+        axes = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        if all(a in axes for a, n in mt.sizes.items() if n > 1):
+            continue
+        block = [[a, mt.coord[a]] for a in sorted(axes)]
+        out[key] = [block, hashlib.sha256(
+            named[key].detach().cpu().numpy().tobytes()).hexdigest()]
+    return out
+
+
+def _held(torch, tag, got: dict, want: dict, tol: float, device,
+          budget: float = 0.0) -> dict:
+    """Every leaf of ``got`` within ``tol`` of the largest magnitude of
+    ``want``'s (host tensors, compared on ``device``); with ``budget``, a
+    parameter element whose first moment in ``want`` is below 1e-4 of
+    its leaf's largest is held to ``budget`` instead.  Returns the worst
+    share, its leaf, the bit-equal leaves and the elements so held."""
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"{tag}: the two trees have other leaves")
+    worst, same, near, size = (0.0, ""), 0, 0, 0
+    for k, w in want.items():
+        g, w = got[k].to(device), w.to(device)
+        if torch.equal(g, w):
+            same += 1
+            continue
+        d = (g.double() - w.double()).abs()
+        top = w.double().abs().max().clamp_min(1e-30)
+        if budget and k.startswith("0||"):
+            mu = want["1||mu||" + k[3:]].to(device).double().abs()
+            cancels = mu < 1e-4 * mu.max()
+            over = (d > tol * top) & cancels
+            near += int(over.sum())
+            size += w.numel()
+            if float(d[cancels].max() if cancels.any() else 0) > budget:
+                raise RuntimeError(f"{tag}: leaf {k} moves beyond the "
+                                   f"learning-rate budget {budget:.2e}")
+            d = d[~cancels]
+        rel = float(d.max() / top) if d.numel() else 0.0
+        worst = max(worst, (rel, k))
+        if not rel <= tol:
+            raise RuntimeError(f"{tag}: leaf {k} differs by {rel:.3e} of its "
+                               f"largest magnitude (tol {tol:.0e})")
+    if size and near > 1e-3 * size:
+        raise RuntimeError(f"{tag}: {near} parameter elements with a "
+                           f"cancelling gradient, over 1e-3 of {size}")
+    return {"worst": worst[0], "at": worst[1], "same": same,
+            "leaves": len(want), "near": near}
+
+
+def _held_to_unsharded(torch, tag, wholes, ref, ref_hist, hist,
+                       device) -> dict:
+    """(b)'s gates on rank 0: the mesh's losses and states against the
+    unsharded steps'."""
+    t1, tn = MESH_TRAIN_TOL
+    for name, i, tol in (("loss", 0, t1), ("grad norm", 1, t1)):
+        rel = abs(hist[0][i] / ref_hist[0][i] - 1)
+        if not rel <= tol:
+            raise RuntimeError(f"mesh-train-{tag}: the first step's {name} "
+                               f"is {rel:.3e} from the unsharded step's")
+    rels = [abs(h[0] / r[0] - 1) for h, r in zip(hist, ref_hist)]
+    if not max(rels) <= tn:
+        raise RuntimeError(f"mesh-train-{tag}: losses {rels} from the "
+                           f"unsharded steps'")
+    last = MESH_TRAIN_STEPS - 1
+    budget = 2 * MESH_TRAIN_LR * MESH_TRAIN_STEPS
+    return {"loss_rel": rels,
+            "first": _held(torch, f"mesh-train-{tag} step 1", wholes[0],
+                           ref[0], t1, device),
+            "last": _held(torch, f"mesh-train-{tag} step {last + 1}",
+                          wholes[last], ref[last], tn, device, budget)}
+
+
+def mesh_train_rank_main(rank: int, world: int, port: int, spec: str) -> None:
+    """One rank of :class:`MeshTrainRanks`: join the gloo group; rank 0
+    first runs the unsharded steps (the yardstick, kept on the host); then
+    each of MESH_TRAIN_RUNS from the same init and batches, timed, with
+    its bytes, peak memory and replicated leaves' digests; rank 0 holds
+    (b)'s whole states to the unsharded ones.  Writes
+    ``mesh-train-rank<r>.json``."""
+    die_with_parent()
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.optim.compression import make_int8_psum
+    from repro_torch.train.parallel import MeshTraining, state_bytes
+    from repro_torch.train.step import init_train_state, make_train_step
+    job = json.loads(Path(spec).read_text())
+    device = job["device"]
+    if device == "cpu":
+        torch.set_num_threads(1)
+    backend = init_world(rank, world, port, device)
+    cuda = device == "cuda"
+    res = {"rank": rank, "backend": backend}
+    last = MESH_TRAIN_STEPS - 1
+    try:
+        cfg, model, adam, batches = _mesh_train_setup(torch, device,
+                                                      job["arch"], job["rows"])
+        ref = {}
+        if rank == 0:
+            state = init_train_state(model, 0, adam)
+            step = make_train_step(model, adam, MESH_TRAIN_STEPS,
+                                   MESH_TRAIN_WARMUP)
+
+            def keep_ref(i, s):
+                if i in (0, last):
+                    ref[i] = {k: v.cpu() for k, v in _named(s).items()}
+            res["unsharded"] = _timed_steps(torch, step, state, batches,
+                                            keep_ref)[1]
+            del state, step
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+        for tag, shape, int8 in MESH_TRAIN_RUNS:
+            mesh = make_mesh(*shape, device=device)
+            mt = MeshTraining(model, mesh)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            state = init_train_state(model, 0, adam, mesh=mesh)
+            step = make_train_step(
+                model, adam, MESH_TRAIN_STEPS, MESH_TRAIN_WARMUP,
+                compress_grads=make_int8_psum(mesh) if int8 else None,
+                mesh=mesh)
+            wholes = {}
+
+            def keep(i, s):
+                if not int8 and i in (0, last):
+                    wholes[i] = _named(mt.unshard(s))
+            state, hist = _timed_steps(torch, step, state, batches, keep)
+            run = {"hist": hist, "bytes": state_bytes(state),
+                   "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+                   "replicated": _replicated(mt, state)}
+            if rank == 0 and not int8:
+                run["held"] = _held_to_unsharded(torch, tag, wholes, ref,
+                                                 res["unsharded"], hist,
+                                                 device)
+            res[tag] = run
+            del state, step, wholes
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    (Path(job["out"]) / f"mesh-train-rank{rank}.json").write_text(
+        json.dumps(res))
+
+
+def mesh_train_gates(ranks: list, single: dict, card: str) -> None:
+    """(b)-(c)'s cross-rank gates and log lines (rank 0 held its states to
+    the unsharded steps)."""
+    cfg = single["cfg"]
+    tokens = MESH_TRAIN_ROWS[0] * MESH_TRAIN_ROWS[1]
+    whole = sum(single["bytes"].values())
+    r0 = ranks[0]
+    log(f"[mesh-train-b] rank 0's unsharded yardstick (the card shared "
+        f"with rank 1 idle): {_step_line(r0['unsharded'], cfg, tokens)}")
+    for tag, shape, int8 in MESH_TRAIN_RUNS:
+        checked = 0
+        for key, (block, digest) in r0[tag]["replicated"].items():
+            other = ranks[1][tag]["replicated"][key]
+            if other[0] == block:
+                checked += 1
+                if other[1] != digest:
+                    raise RuntimeError(f"mesh-train-{tag}: replicated leaf "
+                                       f"{key} differs between the ranks")
+        if "int8" not in tag and checked == 0:
+            raise RuntimeError(f"mesh-train-{tag}: no replicated leaf was "
+                               f"compared")
+        for rank in ranks:
+            run = rank[tag]
+            b = sum(run["bytes"].values())
+            log(f"[mesh-train-{'c' if int8 else 'b'}] {tag} rank "
+                f"{rank['rank']} ({rank['backend']}, two ranks sharing the "
+                f"card): {_step_line(run['hist'], cfg, tokens)}; params + "
+                f"moments {run['bytes']} = {b / whole:.3f} of one device's "
+                f"{whole}; peak memory {run['peak'] / 2**30:.2f} GiB; "
+                f"{card}")
+            if not b < whole:
+                raise RuntimeError(f"mesh-train-{tag}: rank "
+                                   f"{rank['rank']} holds {b} bytes, not "
+                                   f"less than one device's {whole}")
+        losses = [h[0] for h in r0[tag]["hist"]]
+        if not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"mesh-train-{tag}: a loss is not finite")
+        if int8:
+            plain = [h[0] for h in r0["2x1"]["hist"]]
+            log(f"[mesh-train-c] (2, 1) losses with the int8 reduction "
+                f"{losses} beside the float mean's {plain}")
+            continue
+        held = r0[tag]["held"]
+        log(f"[mesh-train-b] {tag}: losses {losses} ({max(held['loss_rel']):.3e} "
+            f"relative to the unsharded steps' at most, tol "
+            f"{MESH_TRAIN_TOL[1]:.0e}); step 1 {held['first']['same']} of "
+            f"{held['first']['leaves']} leaves bit-equal, the largest "
+            f"difference {held['first']['worst']:.3e} of its leaf's "
+            f"magnitude at {held['first']['at']!r} (tol "
+            f"{MESH_TRAIN_TOL[0]:.0e}); step {MESH_TRAIN_STEPS} "
+            f"{held['last']['worst']:.3e} at {held['last']['at']!r} (tol "
+            f"{MESH_TRAIN_TOL[1]:.0e}; {held['last']['near']} elements of "
+            f"cancelling gradient held to the learning-rate budget); "
+            f"{checked} replicated leaves bit-equal on both ranks")
+
+
+def mesh_train_cli_run(tmp: Path) -> dict:
+    """(d)'s command, run to its end (stopping it stops its workers too);
+    no logging (it runs in a thread)."""
+    from repro_torch.launch.mesh import free_port
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "2", "--master-port", str(free_port()), "-m",
+           "repro_torch.launch.train", *MESH_TRAIN_CLI, "--ckpt-dir",
+           str(tmp / "cli"), "--device", MESH_TRAIN_DEVICE]
+    t0 = time.perf_counter()
+    proc = start_child(cmd, cwd=ROOT, env=child_env(), launcher=True,
+                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                       text=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        stop_child(proc)
+    return {"cmd": cmd, "rc": proc.returncode, "out": out, "err": err,
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_train_cli_check(torch, tmp: Path, run: dict, card: str) -> None:
+    """(d) ``python -m torch.distributed.run --nproc-per-node 2 -m
+    repro_torch.launch.train --mesh host``: opt-125m at published width
+    and depth on two ranks sharing the card; rank 0 alone prints the final
+    line and writes the checkpoint, which ``launch/calibrate --ckpt``
+    reads (its held-out fp perplexity below the seed-0 init's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovCorpus
+    from repro_torch.launch import calibrate
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoints
+    ckpt, cmd = tmp / "cli", run["cmd"]
+    if run["rc"] != 0:
+        for line in run["err"].splitlines()[-40:]:
+            log(f"[mesh-train-d] {line}")
+        raise RuntimeError(f"mesh-train-d: torch.distributed.run exited "
+                           f"{run['rc']}")
+    done = [line for line in run["out"].splitlines()
+            if "done: final loss" in line]
+    steps = [line.strip() for line in run["err"].splitlines()
+             if re.search(r"\bstep \d+ loss", line)]
+    arg = lambda name: MESH_TRAIN_CLI[MESH_TRAIN_CLI.index(name) + 1]
+    log(f"[mesh-train-d] {' '.join(cmd[1:7])} ... {' '.join(MESH_TRAIN_CLI)}: "
+        f"{run['seconds']:.1f} s (process start, init, checkpoint included); "
+        f"rank 0's step lines {steps}; {done}; {card}")
+    if len(done) != 1:
+        raise RuntimeError(f"mesh-train-d: {len(done)} ranks printed the "
+                           f"final line, not rank 0 alone")
+    if not math.isfinite(float(done[0].split("final loss ")[1].split()[0])):
+        raise RuntimeError("mesh-train-d: the final loss is not finite")
+    if checkpoints.latest_step(ckpt) != int(arg("--steps")):
+        raise RuntimeError(f"mesh-train-d: no step-{arg('--steps')} "
+                           f"checkpoint")
+    seq = int(arg("--seq"))
+    cal = calibrate.calibrate(calibrate.build_parser().parse_args([
+        "--arch", arg("--arch"), "--ckpt", str(ckpt), "--method", "rtn",
+        "--wbits", "4", "--group", "128", "--calib-samples", "16",
+        "--calib-seq", str(seq), "--seed", "0", "--device",
+        MESH_TRAIN_DEVICE]))
+    cfg = get_config(arg("--arch"))
+    model = build_model(cfg, MESH_TRAIN_DEVICE)
+    test = torch.from_numpy(MarkovCorpus(cfg.vocab_size, seed=0).sample(
+        16, seq, seed=999))
+    init_ppl = calibrate.eval_ppl(model, model.init(0), test)
+    trained = cal["report"]["fp_ppl"]
+    log(f"[mesh-train-d] launch/calibrate --ckpt reads rank 0's step-"
+        f"{arg('--steps')} checkpoint: held-out 16 x {seq} fp perplexity "
+        f"{trained:.4f} (the seed-0 init's {init_ppl:.4f}); rtn w4a16g128 "
+        f"{cal['report']['quant_ppl']:.4f}")
+    if not (math.isfinite(trained) and trained < init_ppl):
+        raise RuntimeError("mesh-train-d: the checkpoint calibrate reads is "
+                           "not the trained tree")
+    del cal
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -13,11 +13,14 @@ the serving trunk (:mod:`repro_torch.serve.tensor_parallel`).
 A 1 x 1 mesh needs no launcher: without a process group,
 :func:`make_serving_mesh` starts a world of one on a free localhost port.
 Larger meshes need their ranks started first (``python -m
-repro_torch.launch.serve --mesh-data D --mesh-model M`` starts them).
+repro_torch.launch.serve --mesh-data D --mesh-model M`` starts them, and
+:func:`init_from_env` joins the world ``python -m torch.distributed.run``
+describes).
 """
 from __future__ import annotations
 
 import logging
+import os
 import socket
 from datetime import timedelta
 
@@ -59,6 +62,28 @@ def init_world(rank: int, world: int, port: int, device) -> str:
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world, rank=rank, timeout=TIMEOUT)
     return backend
+
+
+def init_from_env(device) -> int:
+    """Join the process group a launcher describes in the environment
+    (``torchrun``'s ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` / ``MASTER_PORT``) with :func:`backend_for`'s backend,
+    a CUDA rank first selecting card ``LOCAL_RANK % cards``; returns the
+    world size.  A running group is kept; without one and without a world
+    of more than one rank in the environment nothing is started (1)."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return 1
+    dev = resolve_device(device)
+    rank = int(os.environ["RANK"])
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(backend_for(dev, world), init_method="env://",
+                            world_size=world, rank=rank, timeout=TIMEOUT)
+    return world
 
 
 def _device_mesh(shape: tuple, names: tuple, device):

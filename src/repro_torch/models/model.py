@@ -123,14 +123,17 @@ class Model(transformer.ServingTrunk):
         prefix = batch.get("embeds", batch.get("prefix_embeds"))
         return transformer.forward(params, cfg, tokens, self._t(prefix))
 
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+    def loss(self, params: dict, batch: dict, tp=None) -> torch.Tensor:
+        """The training loss; ``tp`` (a :class:`~repro_torch.train.
+        parallel.TrainParallel`): one rank's shards of the dense trunk on a
+        training mesh."""
         cfg = self.cfg
         batch = {k: self._t(v) for k, v in batch.items()}
         if cfg.family in RECURRENT:
             tokens = batch["tokens"]
             logits = self.forward(params, batch)
             return layers.cross_entropy(logits[:, :-1], tokens[:, 1:])
-        return transformer.lm_loss(params, cfg, batch)
+        return transformer.lm_loss(params, cfg, batch, tp)
 
     # ---- serving: what each family admits -------------------------------
     @property

@@ -65,10 +65,20 @@ def _sinusoidal(t: int, d: int, device=None) -> torch.Tensor:
     return sinusoidal_at(torch.arange(t, device=device), d)
 
 
-def embed(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, cfg, tokens: torch.Tensor, tp=None) -> torch.Tensor:
     """Token embeddings (B, T, d); a no-RoPE model (``rope_theta == 0``,
-    OPT) adds its sinusoidal positions 0..T-1 here."""
-    x = params["embed"][tokens.long()]
+    OPT) adds its sinusoidal positions 0..T-1 here.  On a training mesh
+    (``tp``) a rank holding a slice of the vocabulary looks up the tokens
+    it holds, zeros elsewhere, and the ranks' rows are summed."""
+    emb = params["embed"]
+    if tp is not None and emb.shape[0] < cfg.vocab_size:
+        n = emb.shape[0]
+        idx = tokens.long() - tp.mi * n
+        mine = ((idx >= 0) & (idx < n))[..., None]
+        x = tp.sum(torch.where(mine, emb[idx.clamp(0, n - 1)],
+                               emb.new_zeros(())))
+    else:
+        x = emb[tokens.long()]
     if not cfg.rope_theta:
         x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(
             x.dtype)[None]
@@ -99,33 +109,98 @@ def embed_inputs(params: dict, cfg, tokens=None, prefix_embeds=None,
 
 def apply_block_full(p: dict, x: torch.Tensor, cfg,
                      positions: torch.Tensor, prefix_len: int = 0,
-                     window: int = 0) -> tuple:
+                     window: int = 0, tp=None) -> tuple:
     """One full-sequence block (attention under the config's mask + MLP or
     MoE, pre-norm).  Returns (x, aux): the MoE load-balance loss, 0 for a
-    dense block."""
+    dense block.
+
+    On a training mesh (``tp``, a :class:`~repro_torch.train.parallel.
+    TrainParallel`) the block runs this rank's shards: q/k/v and the MLP's
+    up-projections hold this rank's output columns (their input enters
+    through ``tp.copy``), attention runs on this rank's heads where "model"
+    divides the KV heads (else on q/k/v gathered whole), and a row-split
+    ``wo`` / ``w_down`` sums its partial products over "model"."""
     h = layers.apply_norm(p["ln_attn"], x, cfg.norm)
-    q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    b, t = x.shape[0], x.shape[1]
     hd = cfg.resolved_head_dim
-    q = q.reshape(b, t, cfg.num_heads, hd)
-    k = k.reshape(b, t, cfg.num_kv_heads, hd)
-    v = v.reshape(b, t, cfg.num_kv_heads, hd)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    lin = _column(tp, h)
+    q, k, v = lin(p["wq"], hq * hd), lin(p["wk"], hkv * hd), \
+        lin(p["wv"], hkv * hd)
+    if "bq" in p:
+        q, k, v = q + _cut(tp, p["bq"], q), k + _cut(tp, p["bk"], k), \
+            v + _cut(tp, p["bv"], v)
+    if tp is not None and tp.heads:
+        hq, hkv = hq // tp.m, hkv // tp.m
+    elif tp is not None:
+        q, k, v = _whole(tp, q, hq * hd), _whole(tp, k, hkv * hd), \
+            _whole(tp, v, hkv * hd)
+    b, t = x.shape[0], x.shape[1]
+    q = q.reshape(b, t, hq, hd)
+    k = k.reshape(b, t, hkv, hd)
+    v = v.reshape(b, t, hkv, hd)
     if cfg.rope_theta > 0:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     out = attn_lib.attention(q, k, v, causal=cfg.causal, window=window,
                              prefix_len=prefix_len)
-    x = x + out.reshape(b, t, -1) @ p["wo"]
+    x = x + _row(tp, out.reshape(b, t, -1), p["wo"], cfg.num_heads * hd)
     h2 = layers.apply_norm(p["ln_mlp"], x, cfg.norm)
     if cfg.num_experts:
         y, aux = moe.apply_moe(p["moe"], h2, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
                                act=cfg.act)
         return x + y, aux
-    return (x + layers.apply_mlp(p["mlp"], h2, cfg.act),
+    return (x + _mlp(tp, p["mlp"], h2, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _column(tp, h: torch.Tensor):
+    """``lin(w, full)``, the product ``h @ w`` for a weight of ``full``
+    output features: where ``w`` holds only this rank's columns, ``h``
+    enters through ``tp.copy`` (one for all of them; its backward, the
+    sum over "model", runs only where a split weight used it)."""
+    if tp is None:
+        return lambda w, full: h @ w
+    entered = tp.copy(h)
+    return lambda w, full: (h if w.shape[-1] == full else entered) @ w
+
+
+def _cut(tp, b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A bias for ``y``: a whole bias beside a column-split weight cut to
+    this rank's columns."""
+    return b if tp is None else tp.cols(b, y.shape[-1])
+
+
+def _whole(tp, y: torch.Tensor, full: int) -> torch.Tensor:
+    """A column-split output gathered over "model"."""
+    return tp.gather(y) if y.shape[-1] < full else y
+
+
+def _row(tp, h: torch.Tensor, w: torch.Tensor, full: int) -> torch.Tensor:
+    """``h @ w`` for ``wo`` / ``w_down`` (``full`` input features): a
+    whole-K ``w`` takes ``h`` whole; a row-split one takes this rank's
+    features of ``h`` and its partial products are summed over
+    "model"."""
+    if tp is None:
+        return h @ w
+    k = w.shape[-2]
+    if k == full:
+        return _whole(tp, h, full) @ w
+    return tp.sum(tp.cols(h, k) @ w)
+
+
+def _mlp(tp, mp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The dense MLP; on a training mesh over this rank's columns of the
+    hidden layer."""
+    if tp is None:
+        return layers.apply_mlp(mp, h, cfg.act)
+    col = _column(tp, h)
+
+    def lin(wn, bn):
+        y = col(mp[wn], cfg.d_ff)
+        return y + _cut(tp, mp[bn], y) if bn in mp else y
+
+    return _row(tp, layers.mlp_hidden(lin, cfg.act), mp["w_down"], cfg.d_ff)
 
 
 def call_block(remat: bool, fn, *args):
@@ -139,27 +214,36 @@ def call_block(remat: bool, fn, *args):
     return fn(*args)
 
 
-def head(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and the (tied or untied) vocabulary head."""
+def head(params: dict, cfg, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Final norm and the (tied or untied) vocabulary head; on a training
+    mesh a vocabulary-split head's logits are gathered over "model"."""
     x = layers.apply_norm(params["ln_f"], x, cfg.norm)
     w = params.get("head")
-    return x @ (w if w is not None else params["embed"].T)
+    w = w if w is not None else params["embed"].T
+    if tp is None:
+        return x @ w
+    return _whole(tp, _column(tp, x)(w, cfg.vocab_size), cfg.vocab_size)
 
 
 def forward_with_aux(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
-                     prefix_embeds: Optional[torch.Tensor] = None) -> tuple:
+                     prefix_embeds: Optional[torch.Tensor] = None,
+                     tp=None) -> tuple:
     """(logits (B, T, vocab) of the whole sequence — a VLM's prefix
     positions included —, the load-balance loss summed over layers), each
-    block through :func:`call_block` (``cfg.remat``)."""
-    x, positions, prefix_len = embed_inputs(params, cfg, tokens,
-                                            prefix_embeds)
+    block through :func:`call_block` (``cfg.remat``; on a mesh the
+    recomputation runs the block's collectives again); ``tp``: one rank's
+    shards on a training mesh."""
+    x, positions, prefix_len = embed_inputs(
+        params, cfg, tokens, prefix_embeds,
+        embed_fn=None if tp is None else (lambda t: embed(params, cfg, t,
+                                                          tp)))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         x, aux_l = call_block(cfg.remat, apply_block_full,
                               layer(params["layers"], i), x, cfg, positions,
-                              prefix_len, cfg.window)
+                              prefix_len, cfg.window, tp)
         aux = aux + aux_l
-    return head(params, cfg, x), aux
+    return head(params, cfg, x, tp), aux
 
 
 def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
@@ -168,18 +252,19 @@ def forward(params: dict, cfg, tokens: Optional[torch.Tensor] = None,
     return forward_with_aux(params, cfg, tokens, prefix_embeds)[0]
 
 
-def lm_loss(params: dict, cfg, batch: dict) -> torch.Tensor:
+def lm_loss(params: dict, cfg, batch: dict, tp=None) -> torch.Tensor:
     """Next-token cross entropy over the text (a VLM's prefix positions
     excluded), or audio's frame cross entropy against ``labels``, plus
     ``0.01 *`` the load-balance loss (0 for a dense model), as the
-    reference."""
+    reference.  ``tp``: one rank's shards on a training mesh (the logits
+    are whole on every rank of "model")."""
     if cfg.family == "audio":
         logits, aux = forward_with_aux(params, cfg,
-                                       prefix_embeds=batch["embeds"])
+                                       prefix_embeds=batch["embeds"], tp=tp)
         return layers.cross_entropy(logits, batch["labels"],
                                     batch.get("mask")) + 0.01 * aux
     tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
-    logits, aux = forward_with_aux(params, cfg, tokens, prefix)
+    logits, aux = forward_with_aux(params, cfg, tokens, prefix, tp)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
     return layers.cross_entropy(logits[:, :-1], tokens[:, 1:],

@@ -38,11 +38,13 @@ def adam_init(params, cfg: AdamConfig) -> dict:
 
 @torch.no_grad()
 def adam_update(params, grads, state: dict, cfg: AdamConfig,
-                lr_scale=1.0) -> tuple:
-    """One AdamW step.  Returns (new_params, new_state)."""
+                lr_scale=1.0, grad_norm=None) -> tuple:
+    """One AdamW step.  Returns (new_params, new_state).  ``grad_norm``
+    replaces ``global_norm(grads)`` in the clip: on a mesh the norm of the
+    whole tree, where ``grads`` hold one rank's shards."""
     count = state["count"] + 1
     if cfg.grad_clip > 0:
-        gn = global_norm(grads)
+        gn = global_norm(grads) if grad_norm is None else grad_norm
         # an IEEE quotient: ``float / tensor`` is a reciprocal multiply
         clip = torch.clamp_max(torch.full_like(gn, cfg.grad_clip)
                                / (gn + 1e-9), 1.0)

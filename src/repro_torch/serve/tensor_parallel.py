@@ -30,7 +30,10 @@ channels (``rec``: the recurrent width is split).
 
 A gloo group's collective on a CUDA tensor is staged through the host: the
 copy to the host waits for this rank's own stream, so the collective sees
-the rank's finished kernels.  NCCL takes CUDA tensors as they are.
+the rank's finished kernels.  NCCL takes CUDA tensors as they are.  The
+plain collectives (:func:`all_gather`, :func:`all_reduce`) also carry
+training on a mesh (:mod:`repro_torch.train.parallel` wraps them in
+autograd functions).
 """
 from __future__ import annotations
 
@@ -92,28 +95,43 @@ class TensorParallel:
         return t[..., self.mi * width:(self.mi + 1) * width]
 
     # ---- collectives -----------------------------------------------------
-    def _staged(self, x: torch.Tensor, group) -> torch.Tensor:
-        if x.is_cuda and dist.get_backend(group) == "gloo":
-            return x.detach().cpu()
-        return x.detach().contiguous()
-
     def gather(self, x: torch.Tensor, axis: str, dim: int = -1
                ) -> torch.Tensor:
         """The pieces of ``x`` from every rank of ``axis``, concatenated
         along ``dim`` in rank order; ``x`` when the axis has one rank."""
         group = self.groups.get(axis)
-        if group is None:
-            return x
-        xs = self._staged(x, group)
-        parts = [torch.empty_like(xs) for _ in range(group.size())]
-        dist.all_gather(parts, xs, group=group)
-        return torch.cat(parts, dim=dim).to(x.device)
+        return x if group is None else all_gather(x, group, dim)
 
     def sum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The elementwise sum of ``x`` over the ranks of ``axis``."""
         group = self.groups.get(axis)
-        if group is None:
-            return x
-        xs = self._staged(x, group).clone()
-        dist.all_reduce(xs, op=dist.ReduceOp.SUM, group=group)
-        return xs.to(x.device)
+        return x if group is None else all_reduce(x, group)
+
+
+def _staged(x: torch.Tensor, group) -> torch.Tensor:
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.detach().cpu()
+    return x.detach().contiguous()
+
+
+def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The pieces of ``x`` from every rank of ``group`` concatenated along
+    ``dim`` in rank order, on ``x``'s device (outside autograd; 2-byte
+    floats cross as int16: a gather moves bits only)."""
+    xs = _staged(x, group)
+    raw = xs.view(torch.int16) if xs.dtype in (torch.bfloat16,
+                                                torch.float16) else xs
+    parts = [torch.empty_like(raw) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, raw, group=group)
+    out = torch.cat(parts, dim=dim)
+    return (out.view(xs.dtype) if raw is not xs else out).to(x.device)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum of ``x`` over the ranks of ``group``, on
+    ``x``'s device (outside autograd; ``x`` itself is left as it was)."""
+    xs = _staged(x, group)
+    if xs.device == x.device:          # no host copy was made
+        xs = xs.clone()
+    dist.all_reduce(xs, op=dist.ReduceOp.SUM, group=group)
+    return xs.to(x.device)

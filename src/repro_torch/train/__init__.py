@@ -1,2 +1,2 @@
-"""Training of the port: the step, the fault-tolerant loop and npz
-checkpoints in the reference's layout."""
+"""Training of the port: the step, the fault-tolerant loop, npz
+checkpoints in the reference's layout and training on a mesh."""

@@ -12,9 +12,15 @@
   (``StepTimer``); a flagged step is logged and counted into the
   checkpoint's ``extra``.
 
-The reference's ``sharding_fn`` (placing restored leaves on a mesh) has no
-counterpart: the port trains on one device, where ``restore`` puts each
-leaf on its like-leaf's device.
+On a mesh (``sharding``, a :class:`~repro_torch.train.parallel.
+MeshTraining`) the state holds this rank's shards, and checkpoints hold
+whole arrays, as the reference's: every rank gathers the whole state and
+rank 0 writes it in the reference's npz layout; on start every rank
+restores the whole state and cuts its shards (the reference's
+``sharding_fn`` role), so a checkpoint written on one mesh resumes on any
+other, one device included.  The loss and grad norm the step returns are
+the global batch's, and the straggler monitor times the slowest rank, so
+every rank skips, aborts and flags alike.
 """
 from __future__ import annotations
 
@@ -39,15 +45,21 @@ class LoopConfig:
 
 
 def train_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
-               cfg: LoopConfig, on_metrics: Optional[Callable] = None
-               ) -> TrainState:
+               cfg: LoopConfig, on_metrics: Optional[Callable] = None,
+               sharding=None) -> TrainState:
     """Run to ``total_steps`` with restart semantics; returns the final
     state.  ``on_metrics(step, metrics, seconds)`` sees every applied
-    step."""
+    step.  ``sharding``: the state's layout on a mesh (every rank runs the
+    loop)."""
     start = int(state.step)
     latest = checkpoints.latest_step(cfg.ckpt_dir) if cfg.ckpt_dir else None
     if latest is not None and latest > start:
-        state, start = checkpoints.restore(cfg.ckpt_dir, state)
+        if sharding is None:
+            state, start = checkpoints.restore(cfg.ckpt_dir, state)
+        else:
+            whole, start = checkpoints.restore(cfg.ckpt_dir,
+                                               sharding.like(state))
+            state = sharding.shard(whole)
         logger.info("restored checkpoint at step %d", start)
 
     timer = StepTimer()
@@ -60,6 +72,8 @@ def train_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
         loss = float(metrics["loss"])
         gnorm = float(metrics["grad_norm"])
         dt = timer.stop()
+        if sharding is not None:
+            dt = timer.samples[-1] = sharding.slowest(dt)
 
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             bad_streak += 1
@@ -86,6 +100,9 @@ def train_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
             on_metrics(step, metrics, dt)
         if cfg.ckpt_dir and ((step + 1) % cfg.ckpt_every == 0
                              or step + 1 == cfg.total_steps):
-            checkpoints.save(cfg.ckpt_dir, step + 1, state, keep=cfg.keep,
-                             extra={"stragglers": stragglers})
+            whole = state if sharding is None else sharding.unshard(state)
+            if sharding is None or sharding.writer:
+                checkpoints.save(cfg.ckpt_dir, step + 1, whole,
+                                 keep=cfg.keep,
+                                 extra={"stragglers": stragglers})
     return state

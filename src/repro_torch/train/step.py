@@ -5,7 +5,14 @@ Gradients come from autograd through ``model.loss``; with
 ``cfg.microbatches = n > 1`` the batch splits into n equal parts along B,
 their gradients sum in float32 and loss and gradients are divided by n, so
 activation memory is one microbatch's.  The step issues no host sync: the
-loop reads the loss."""
+loop reads the loss.
+
+On a (data, model) mesh (``mesh``) the state holds this rank's shards
+and the step trains them as :mod:`repro_torch.train.parallel` sets out:
+FSDP over "data", tensor parallelism over "model", the rows of the global
+batch over the data-parallel axes (each rank's rows split into the
+microbatches), the gradients reduced over those axes (a float mean, or
+``compress_grads`` in its place) and clipped by the whole tree's norm."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,8 +35,14 @@ class TrainState:
     step: torch.Tensor
 
 
-def init_train_state(model, seed: int, adam_cfg: AdamConfig) -> TrainState:
+def init_train_state(model, seed: int, adam_cfg: AdamConfig,
+                     mesh=None) -> TrainState:
+    """Seeded params, zero moments, step 0; on ``mesh`` this rank's
+    shards of them (the same whole init cut)."""
     params = model.init(seed)
+    if mesh is not None:
+        from repro_torch.train.parallel import MeshTraining
+        params = MeshTraining(model, mesh).shard_params(params)
     return TrainState(params=params, opt=adam_init(params, adam_cfg),
                       step=torch.zeros((), dtype=torch.int32,
                                        device=model.device))
@@ -47,10 +60,10 @@ def _split_microbatches(batch: dict, n: int) -> list:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _value_and_grad(model, params: dict, batch: dict) -> tuple:
+def _value_and_grad(model, params: dict, batch: dict, tp=None) -> tuple:
     """(loss, gradient tree) of ``model.loss`` at ``params``."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss = model.loss(leaves, batch)
+    loss = model.loss(leaves, batch, tp=tp)
     loss.backward()
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), leaves)
@@ -59,36 +72,57 @@ def _value_and_grad(model, params: dict, batch: dict) -> tuple:
 
 def make_train_step(model, adam_cfg: AdamConfig, total_steps: int = 10000,
                     warmup: int = 100,
-                    compress_grads: Optional[Callable] = None):
+                    compress_grads: Optional[Callable] = None, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics); ``metrics``
     holds ``loss``, ``lr_scale`` and ``grad_norm`` (before clipping) as
-    0-d device tensors.  ``compress_grads(grads) -> grads`` is a hook
-    applied before the update (the reference's int8 reduction over a mesh
-    is not ported)."""
+    0-d device tensors.  ``compress_grads(grads) -> grads`` is applied
+    before the update, as the reference applies it; on ``mesh`` (a
+    ``DeviceMesh`` over ("data", "model") or ("pod", "data", "model")) it
+    replaces the float mean over the data-parallel axes
+    (:func:`repro_torch.optim.compression.make_int8_psum`), the state
+    holds this rank's shards (:func:`init_train_state` with ``mesh``), the
+    batch is the global batch on every rank, and loss and grad norm are
+    the global batch's.  The non-dense families refuse a mesh larger than
+    1 x 1 (ROADMAP queue 1, item 6d)."""
     n_micro = max(model.cfg.microbatches, 1)
+    mt = None
+    if mesh is not None:
+        from repro_torch.train.parallel import MeshTraining
+        mt = MeshTraining(model, mesh)
+    tp = None if mt is None else mt.tp
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
+        if mt is not None:
+            batch = mt.rows(batch)
+            params = mt.gather(params)
         if n_micro == 1:
-            loss, grads = _value_and_grad(model, params, batch)
+            loss, grads = _value_and_grad(model, params, batch, tp)
         else:
             loss = grads = None
             for mb in _split_microbatches(batch, n_micro):
-                l, g = _value_and_grad(model, params, mb)
+                l, g = _value_and_grad(model, params, mb, tp)
                 g = tree_map(lambda t: t.to(torch.float32), g)
                 loss = l if loss is None else loss + l
                 grads = g if grads is None else tree_map(torch.add, grads, g)
             loss = loss / n_micro
             grads = tree_map(lambda g: g / n_micro, grads)
 
-        if compress_grads is not None:
-            grads = compress_grads(grads)
+        if mt is None:
+            if compress_grads is not None:
+                grads = compress_grads(grads)
+            grad_norm = global_norm(grads)
+        else:
+            loss, grads = mt.reduce(loss, grads, batch, compress_grads)
+            grad_norm = mt.global_norm(grads)
+            grads = mt.keep_local(grads)
 
         lr_scale = linear_warmup_cosine(state.step, warmup, total_steps)
-        new_params, new_opt = adam_update(params, grads, state.opt, adam_cfg,
-                                          lr_scale)
+        new_params, new_opt = adam_update(state.params, grads, state.opt,
+                                          adam_cfg, lr_scale,
+                                          grad_norm=grad_norm)
         metrics = {"loss": loss, "lr_scale": lr_scale,
-                   "grad_norm": global_norm(grads)}
+                   "grad_norm": grad_norm}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step

@@ -478,7 +478,7 @@ def test_cli_resumes_and_hands_off_to_calibrate(tmp_path, capsys, caplog):
 
 
 def test_cli_refuses_mesh_and_absent_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         launch_train.main(_argv(tmp_path) + ["--mesh", "production"])
     if not torch.cuda.is_available():
         argv = [a for a in _argv(tmp_path) if a not in ("--device", "cpu")]
